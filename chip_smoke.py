@@ -11,25 +11,41 @@ failing phase raises:
 1. device: the card's name and power limit (nvidia-smi), torch.version.cuda
    and the compute capability, which must be (9, 0);
 2. build: nvcc builds the kernel library (seconds and ptxas's report);
-3. kernel vs plain: the forward compositing kernel against its plain
-   PyTorch version on seeded scenes (a 66x1030 wrap_x panorama with splats
-   across the seam, the edge-on fixture, distortion on and off);
-4. main path: a seeded 1,000,000-gaussian model of kitti360_nvs_1908's
+3. kernel vs plain: the forward and the backward compositing kernels
+   against their plain PyTorch versions on seeded scenes (a 66x1030 wrap_x
+   panorama with splats across the seam, distortion on and off; the
+   edge-on fixture), the backward with seeded random cotangents;
+4. serving path: a seeded 1,000,000-gaussian model of kitti360_nvs_1908's
    shape (SH degree 3, 66x515 halves rendered as one 66x1030 wrap_x
    panorama) served through ``gslidar_tpu_torch.render.render_scene`` over
    4 front/back camera pairs of the procedural Synthetic scene; the
-   kernel's launch count must rise once per 360-degree render, and one
-   pair's 360 pass is held against the two-half stitch (see
+   forward kernel's launch count must rise once per 360-degree render, and
+   one pair's 360 pass is held against the two-half stitch (see
    ``stitch_vs_360`` for why that comparison counts pixels by their
    distance to a tile edge);
-5. kernel vs plain at full size on one of those views, timed with CUDA
-   events in turns (median of 10 each after warm-up), with the whole
-   360 render, its preprocess and its binning (median of 5);
-6. the result: the card's nvidia-smi line, one JSON line per kernel, and
-   the last line ``{"ok": true, "device": {...}}``.
+5. the forward kernel vs plain at full size on one of those views, timed
+   with CUDA events in turns (median of 10 each after warm-up), with the
+   whole 360 render, its preprocess and its binning (median of 5);
+6. training path (the main path): ``gslidar_tpu_torch.train.training`` for
+   6 steps of the same seeded 1M-gaussian model on the Synthetic scene at
+   kitti360_nvs_1908's shape (66x515 half panoramas, its lambdas and
+   learning rates); each step must launch the forward and the backward
+   kernel exactly once, give a finite loss and finite gradients, and every
+   param group with a gradient and a learning rate, and the prior, must
+   move; then ``python -m gslidar_tpu_torch.train`` on
+   configs/synthetic_smoke.yaml for 5 steps in a subprocess (scene,
+   ``create_from_pcd`` and the CLI);
+7. one full-size training step (iteration 7001, every loss schedule on,
+   densification statistics on): the backward kernel against its plain
+   version on that step's rows with seeded random cotangents; CUDA-event
+   timings (median of 5 after warm-up) of the whole step and of its
+   stages, the backward kernel against the plain version (median of 3),
+   and the device's idle share over 3 steps from ``torch.profiler``;
+8. the result: the card's nvidia-smi line, one JSON line of the kernels,
+   and the last line ``{"ok": true, "device": {...}}``.
 
-Tolerances, kernel vs plain: color, features, normal, alpha and final T
-at atol 1e-4; mean depth and sum w*d^2 at rtol 1e-4 + atol 1e-3;
+Tolerances, forward kernel vs plain: color, features, normal, alpha and
+final T at atol 1e-4; mean depth and sum w*d^2 at rtol 1e-4 + atol 1e-3;
 distortion at atol 1e-4. The two run the same IEEE per-pixel arithmetic
 but take the transmittance products and channel sums in another order, so
 a T_before within rounding of 0.5 (median) or of the 1e-4 floor can flip
@@ -37,6 +53,12 @@ a choice: median depth, median position and n_contrib must be equal on
 >= 99.9% of pixels, and a pixel whose n_contrib flipped is left out of the
 continuous comparisons (its last contribution is in one sum and not the
 other). Flip counts and maximum errors are printed.
+
+Backward kernel vs plain: per gradient column, the maximum error relative
+to the column's largest magnitude must be finite and <= 1e-4, and the
+kernel's table finite everywhere. The two walk the same instances with the
+same decisions, but the plain version takes its transmittance and prefix
+sums with cumprod/cumsum and its pixel sums in another order.
 """
 
 from __future__ import annotations
@@ -59,6 +81,11 @@ N_PAIRS = 4
 ATOL = 1e-4
 DEPTH_RTOL, DEPTH_ATOL = 1e-4, 1e-3
 MAX_FLIP_FRAC = 1e-3
+BWD_RTOL = 1e-4           # backward: per column, of its largest magnitude
+TRAIN_STEPS = 6
+CLI_STEPS = 5
+TIMED_ITERATION = 7001    # every loss schedule on (distortion > 3000,
+                          # normal consistency > 7000)
 # 360 pass vs two-half stitch (stitch_vs_360): the pixels outside the
 # phase-3 tolerances must sit at tile-column edges, where the two layouts
 # clip splats differently; a layout fault spreads them over every column
@@ -168,6 +195,7 @@ def compare(kern, plain, C, S):
 
 
 def run_pair(rows, tile_starts, params, settings, C, S):
+    """Forward kernel vs plain: (ok, summary, the kernel's CompositeOut)."""
     import torch
     from gslidar_tpu_torch.raster.composite_fwd import (
         composite_forward, composite_forward_reference)
@@ -175,7 +203,45 @@ def run_pair(rows, tile_starts, params, settings, C, S):
     plain = composite_forward_reference(rows, tile_starts, params, settings,
                                         C, S)
     torch.cuda.synchronize()
-    return compare(kern, plain, C, S)
+    return (*compare(kern, plain, C, S), kern)
+
+
+def random_cotangents(settings, C, S, seed, device):
+    """Seeded N(0, 1) cotangents of color, features, depth and final T."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    H, W = settings.height, settings.width
+    return [torch.as_tensor(rng.normal(size=s).astype(np.float32),
+                            device=device)
+            for s in ((C, H, W), (S + 3, H, W), (4, H, W), (1, H, W))]
+
+
+def run_bwd_pair(rows, tile_starts, fwd, cts, params, settings, C, S):
+    """Backward kernel vs plain on the same inputs: (ok, summary). The
+    kernel runs twice: its table must repeat bit for bit."""
+    import torch
+    from gslidar_tpu_torch.raster.composite_bwd import (
+        composite_backward, composite_backward_reference)
+    with torch.no_grad():
+        kern = composite_backward(rows, tile_starts, fwd, cts, params,
+                                  settings, C, S)
+        again = composite_backward(rows, tile_starts, fwd, cts, params,
+                                   settings, C, S)
+        plain = composite_backward_reference(rows, tile_starts, fwd, cts,
+                                             params, settings, C, S)
+    torch.cuda.synchronize()
+    scale = plain.abs().amax(0).clamp_min(1e-30)
+    col = ((kern - plain).abs().amax(0) / scale).cpu()
+    finite = bool(torch.isfinite(kern).all())
+    repeats = bool(torch.equal(kern, again))
+    ok = finite and repeats and bool(torch.isfinite(col).all()) and \
+        float(col.max()) <= BWD_RTOL
+    return ok, dict(
+        max_rel_err_per_column=[float(f"{x:.3g}") for x in col.tolist()],
+        rows_differing=int((kern != plain).any(1).sum()),
+        rows=rows.shape[0], finite=finite, repeats_bitwise=repeats,
+        raw_max_abs_err=float((kern - plain).abs().max()))
 
 
 # ---------------------------------------------------------------- phase 3
@@ -231,7 +297,7 @@ def phase_kernel_vs_plain(device):
                                            num_extra_features=4))
     sc = seam_scene(device)
     eye = torch.eye(4, device=device)
-    results = {}
+    results, bwd = {}, {}
     for dist in (True, False):
         s = dataclasses.replace(base, compute_distortion=dist)
         prep = preprocess(sc["means"], sc["scales"], sc["quats"], sc["opac"],
@@ -241,23 +307,37 @@ def phase_kernel_vs_plain(device):
         b = bin_gaussians(prep.rect_min, prep.rect_max, prep.depth,
                           prep.tiles_touched, 1.0, s,
                           payload=pack_payload(prep, sc["opac"], sc["feats"]))
-        ok, summ = run_pair(b.data_rows.contiguous(), b.tile_starts,
-                            make_params(1.0, s), s, 4, 4)
+        rows, params = b.data_rows.contiguous(), make_params(1.0, s)
+        ok, summ, fwd = run_pair(rows, b.tile_starts, params, s, 4, 4)
         summ["instances"] = b.num_pairs
-        results[f"seam_distortion_{'on' if dist else 'off'}"] = (ok, summ)
+        name = f"seam_distortion_{'on' if dist else 'off'}"
+        results[name] = (ok, summ)
+        bwd[name] = run_bwd_pair(rows, b.tile_starts, fwd,
+                                 random_cotangents(s, 4, 4, SEED + 5 + dist,
+                                                   device), params, s, 4, 4)
 
     es = RasterSettings(height=48, width=96, vfov=(-20.0, 20.0),
                         hfov=(-60.0, 60.0), tile_h=8, tile_w=128)
     starts = torch.zeros(es.num_tiles + 1, dtype=torch.int32, device=device)
     starts[1:] = 2
-    results["edge_on"] = run_pair(edge_on_rows(device), starts,
-                                  make_params(1.0, es), es, 4, 0)
-    for name, (ok, summ) in results.items():
-        say(3, f"kernel vs plain {name}: {'ok' if ok else 'FAIL'} "
-               f"{json.dumps(summ)}")
-    if not all(ok for ok, _ in results.values()):
-        raise RuntimeError("kernel disagrees with its plain version")
-    return max(s["raw_max_abs_err"] for _, s in results.values())
+    rows, params = edge_on_rows(device), make_params(1.0, es)
+    ok, summ, fwd = run_pair(rows, starts, params, es, 4, 0)
+    results["edge_on"] = (ok, summ)
+    bwd["edge_on"] = run_bwd_pair(rows, starts, fwd,
+                                  random_cotangents(es, 4, 0, SEED + 7,
+                                                    device), params, es, 4, 0)
+    for kind, res in (("forward", results), ("backward", bwd)):
+        for name, (ok, summ) in res.items():
+            say(3, f"{kind} kernel vs plain {name}: "
+                   f"{'ok' if ok else 'FAIL'} {json.dumps(summ)}")
+    if not all(ok for ok, _ in [*results.values(), *bwd.values()]):
+        raise RuntimeError("a kernel disagrees with its plain version")
+    # the edge-on splat's 1e-36 tangent makes its normal's 1/|u x v| reach
+    # 1e15 and its T gradient 1e14 (finite, as in the Pallas kernel): its
+    # absolute error is left out of the kernels line, its relative one not
+    return (max(s["raw_max_abs_err"] for _, s in results.values()),
+            max(s["raw_max_abs_err"] for k, (_, s) in bwd.items()
+                if k != "edge_on"))
 
 
 # ---------------------------------------------------------------- phase 4
@@ -349,7 +429,7 @@ def phase_main_path(device):
     pred = np.concatenate([r["depth"][1] for r in results])
     hit = gt > 0
     med_err_m = float(np.median(np.abs(pred[hit] - gt[hit]))) / sf
-    say(4, f"main path: {len(results)} 360-degree renders of "
+    say(4, f"serving path: {len(results)} 360-degree renders of "
            f"{NUM_GAUSSIANS} gaussians at {h}x{2 * w} | kernel launches "
            f"{launches} | instances per render "
            f"{[r['num_pairs'] for r in results]} | points "
@@ -475,7 +555,7 @@ def phase_full_size(args, params, alive, prior, cam, smi):
         b = binning()
         rows, starts = b.data_rows.contiguous(), b.tile_starts
         params8 = make_params(sf, s)
-        ok, summ = run_pair(rows, starts, params8, s, 4, 4)
+        ok, summ, _ = run_pair(rows, starts, params8, s, 4, 4)
         say(5, f"kernel vs plain at full size ({b.num_pairs} instances, "
                f"{s.height}x{s.width}): {'ok' if ok else 'FAIL'} "
                f"{json.dumps(summ)}")
@@ -523,21 +603,310 @@ def phase_full_size(args, params, alive, prior, cam, smi):
     return summ["raw_max_abs_err"], med
 
 
+# ---------------------------------------------------------------- phase 6
+def train_args(model_path, iterations):
+    """kitti360_nvs_1908's run config on the procedural Synthetic scene."""
+    from gslidar_tpu_torch.train import load_args
+    return load_args(os.path.join(REPO, "configs", "kitti360_nvs_1908.yaml"),
+                     os.path.join(REPO, "configs", "base.yaml"),
+                     ["scene_type=Synthetic", f"seed={SEED}", "frames=8",
+                      f"hw=[{HW[0]},{HW[1]}]", f"num_pts={NUM_GAUSSIANS}",
+                      f"model_path={model_path}",
+                      f"iterations={iterations}"])
+
+
+def phase_train(device, init_params):
+    """The training path: ``training`` for TRAIN_STEPS steps from the
+    seeded 1M-gaussian params, the launch counts set to 0 just before it
+    and read just after."""
+    import math
+    import random
+    import numpy as np
+    import torch
+    from gslidar_tpu_torch.models.gaussians import PARAM_KEYS
+    from gslidar_tpu_torch.models.optim import group_lrs
+    from gslidar_tpu_torch.raster.composite_bwd import composite_backward
+    from gslidar_tpu_torch.raster.composite_fwd import composite_forward
+    from gslidar_tpu_torch.train import training
+
+    args = train_args(os.path.join(REPO, "build", "chip_smoke_train"),
+                      TRAIN_STEPS)
+    random.seed(SEED)           # the loader's pair shuffle
+    np.random.seed(SEED)        # and its point subsampling
+    counts, grad_seen, finite = [], {}, True
+
+    def on_step(iteration, state, loss, log, grads):
+        nonlocal finite
+        counts.append((composite_forward.launches,
+                       composite_backward.launches, log["num_pairs"]))
+        for k, g in grads.items():
+            finite = finite and bool(torch.isfinite(g).all())
+            grad_seen[k] = grad_seen.get(k, False) or bool(g.any())
+
+    composite_forward.launches = 0
+    composite_backward.launches = 0
+    t0 = time.perf_counter()
+    state, scene, losses = training(args, device, init_params=init_params,
+                                    on_step=on_step)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = (composite_forward.launches, composite_backward.launches)
+
+    per_step = [(f1 - f0, b1 - b0) for (f0, b0, _), (f1, b1, _) in
+                zip([(0, 0, 0)] + counts[:-1], counts)]
+    lrs = group_lrs(args, 1)
+    moved = {k: not torch.equal(state.params[k], init_params[k])
+             for k in PARAM_KEYS}
+    expect = {k: grad_seen[k] and lrs[k] != 0 for k in PARAM_KEYS}
+    prior_moved = bool((state.prior != math.log(0.1 / 0.9)).any())
+    still = {k: "zero gradient" if not grad_seen[k] else "lr 0"
+             for k in PARAM_KEYS if not expect[k]}
+    say(6, f"training path: {len(losses)} steps of {NUM_GAUSSIANS} gaussians "
+           f"at {HW[0]}x{HW[1]} | launches forward {launches[0]}, backward "
+           f"{launches[1]}, per step {per_step} | instances per step "
+           f"{[c[2] for c in counts]} | loss {[round(x, 5) for x in losses]}"
+           f" | gradients finite {finite} | moved "
+           f"{sorted(k for k in moved if moved[k])}, prior {prior_moved}; "
+           f"unmoved by the config {still} | {wall_s:.2f} s with set-up")
+    # SH degree 0 until sh_increase_interval: f_rest has no gradient yet
+    core = ("xyz", "f_dc", "opacity", "scaling", "rotation")
+    if (len(losses) != TRAIN_STEPS or any(d != (1, 1) for d in per_step)
+            or not all(math.isfinite(x) for x in losses) or not finite
+            or moved != expect or not prior_moved
+            or not all(expect[k] for k in core)):
+        raise RuntimeError("the training path failed its checks")
+    return args, scene, launches
+
+
+def phase_train_cli():
+    """``python -m gslidar_tpu_torch.train`` as a user runs it: the scene,
+    create_from_pcd and CLI_STEPS steps of configs/synthetic_smoke.yaml."""
+    import sys
+    env = dict(os.environ, PYTHONPATH=REPO)
+    cmd = [sys.executable, "-m", "gslidar_tpu_torch.train", "--config",
+           "configs/synthetic_smoke.yaml", f"iterations={CLI_STEPS}",
+           f"seed={SEED}",
+           f"model_path={os.path.join(REPO, 'build', 'chip_smoke_cli')}"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+                       text=True, timeout=600)
+    wall_s = time.perf_counter() - t0
+    last = (r.stdout.strip().splitlines() or [""])[-1]
+    say(6, f"training CLI: rc {r.returncode} in {wall_s:.1f} s | {last}")
+    if r.returncode != 0 or f"trained {CLI_STEPS} steps" not in last:
+        raise RuntimeError(f"the training CLI failed:\n{r.stdout[-2000:]}\n"
+                           f"{r.stderr[-3000:]}")
+
+
+# ---------------------------------------------------------------- phase 7
+def timed(fn):
+    """One run of fn between two CUDA events, in ms."""
+    import torch
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    fn()
+    ev1.record()
+    torch.cuda.synchronize()
+    return ev0.elapsed_time(ev1)
+
+
+def device_idle_share(fn, n):
+    """Share of the wall time of n runs of fn in which no kernel, copy or
+    memset ran on the card (torch.profiler), and the device time by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:                       # union of the device spans
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                (e.time_range.end - e.time_range.start) / 1e3 / n
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return 1.0 - busy / wall_us, busy / 1e3 / n, wall_us / 1e3 / n, top
+
+
+def phase_train_step(args, scene, init_params, device, smi):
+    """One full-size training step at TIMED_ITERATION: the backward kernel
+    vs plain on its rows, then stage timings and the idle share."""
+    import statistics
+    import torch
+    import gslidar_tpu_torch.raster.composite_op as co
+    from gslidar_tpu_torch.engine.losses import compute_losses
+    from gslidar_tpu_torch.engine.render import render
+    from gslidar_tpu_torch.engine.train import (_transmat_for_stats,
+                                                camera_to_batch,
+                                                init_train_state,
+                                                make_train_step)
+    from gslidar_tpu_torch.models import gaussians as G
+    from gslidar_tpu_torch.models.densify import add_densification_stats
+    from gslidar_tpu_torch.models.optim import adam_step, group_lrs
+    from gslidar_tpu_torch.models.raydrop_prior import (PriorAdam,
+                                                        init_raydrop_prior)
+    from gslidar_tpu_torch.raster.composite_bwd import (
+        composite_backward, composite_backward_reference)
+    from gslidar_tpu_torch.raster.composite_fwd import composite_forward
+    from gslidar_tpu_torch.raster.rasterize import densify_grads_from_T_tap
+    from gslidar_tpu_torch.render import gaussian_config, raster_settings
+
+    h, w = HW
+    cfg = gaussian_config(args)
+    settings = raster_settings(args, h, w)
+    bg = torch.tensor([0.0, 0.0, 0.0, 1.0], device=device)
+    n = init_params["xyz"].shape[0]
+    state = init_train_state(init_params, G.GaussianAux.zeros(n, device),
+                             init_raydrop_prior(h, w, device))
+    batch = camera_to_batch(scene.get_train_cameras()[0], device)
+    it, sf = TIMED_ITERATION, float(args.scale_factor)
+    step = make_train_step(args, cfg, settings, bg)
+
+    # one step, keeping what its backward kernel and reduction were given
+    captured = {}
+    bin_orig, bwd_orig = co.bin_gaussians, co.composite_backward
+
+    def bin_keep(*a, **k):
+        captured["binning"] = bin_orig(*a, **k)
+        return captured["binning"]
+
+    def bwd_keep(*a):
+        captured["bwd"] = a
+        return bwd_orig(*a)
+
+    co.bin_gaussians, co.composite_backward = bin_keep, bwd_keep
+    try:
+        _, _, _, grads = step(state, batch, it, SH_DEGREE, 0.0, True)
+    finally:
+        co.bin_gaussians, co.composite_backward = bin_orig, bwd_orig
+    rows, starts, fwd, _, params8, s, C, S = captured["bwd"]
+    gid = captured["binning"].gid_sorted
+    with torch.no_grad():
+        table = composite_backward(*captured["bwd"])
+        red = [rows.new_zeros(n, rows.shape[1]).index_add_(0, gid, table)
+               for _ in range(2)]
+    say(7, f"per-gaussian reduction (index_add_, float atomics) run twice on "
+           f"one table: {int((red[0] != red[1]).sum())} of {red[0].numel()} "
+           f"entries differ, max {float((red[0] - red[1]).abs().max()):.3g}")
+    ok, summ = run_bwd_pair(rows, starts, fwd,
+                            random_cotangents(s, C, S, SEED + 9, device),
+                            params8, s, C, S)
+    say(7, f"backward kernel vs plain at full size ({rows.shape[0]} "
+           f"instances, {s.height}x{s.width}): {'ok' if ok else 'FAIL'} "
+           f"{json.dumps(summ)}")
+    if not ok:
+        raise RuntimeError("the backward kernel disagrees with its plain "
+                           "version at full size")
+
+    # the stages, each alone on the step's own inputs
+    leaves = {k: v.detach().requires_grad_(True)
+              for k, v in init_params.items()}
+    prior = state.prior.detach().requires_grad_(True)
+    tap = torch.zeros(n, 3, 3, device=device, requires_grad=True)
+    alive = state.aux.alive
+
+    def fwd_render():
+        return render(leaves, alive, batch.viewmat, batch.campos,
+                      batch.timestamp, batch.towards_idx, prior, bg,
+                      SH_DEGREE, sf, cfg, settings, dynamic=False,
+                      T_tap=tap)
+
+    pkg = fwd_render()
+
+    def losses():
+        return compute_losses(pkg, batch.pts_depth, batch.pts_intensity, it,
+                              args, G.get_opacity(leaves)[:, 0],
+                              alive.to(torch.float32))[0]
+
+    loss = losses()
+    lrs = group_lrs(args, it)
+    gtap = torch.zeros(n, 3, 3, device=device)
+    stages = {
+        "step": lambda: step(state, batch, it, SH_DEGREE, 0.0, True),
+        "render": fwd_render,
+        "forward kernel": lambda: composite_forward(rows, starts, params8, s,
+                                                    C, S),
+        "losses": losses,
+        "backward": lambda: torch.autograd.grad(
+            loss, [*leaves.values(), prior, tap], retain_graph=True,
+            allow_unused=True),
+        "backward kernel": lambda: composite_backward(*captured["bwd"]),
+        "reduction": lambda: rows.new_zeros(n, rows.shape[1]).index_add_(
+            0, gid, table),
+        "adam": lambda: (adam_step(state.params, grads, state.opt, lrs),
+                         PriorAdam.step(state.prior, grads["prior"],
+                                        state.prior_opt, 0.1)),
+        "stats": lambda: add_densification_stats(
+            state.aux, densify_grads_from_T_tap(
+                gtap, _transmat_for_stats(init_params, batch.viewmat, cfg,
+                                          batch.timestamp, 0.0), settings),
+            grads["t"], pkg.radii, pkg.visibility),
+    }
+    with torch.no_grad():
+        plain_ms = [timed(lambda: composite_backward_reference(
+            *captured["bwd"])) for _ in range(3)]
+    for fn in stages.values():                      # warm-up
+        fn()
+    torch.cuda.reset_peak_memory_stats()
+    ms = {k: [] for k in stages}
+    for _ in range(5):
+        for k, fn in stages.items():
+            ms[k].append(timed(fn))
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    med["plain backward"] = statistics.median(plain_ms)
+    med["autograd rest"] = (med["backward"] - med["backward kernel"]
+                            - med["reduction"])
+    idle, busy_ms, wall_ms, top = device_idle_share(stages["step"], 3)
+    say(7, f"timing on {smi}, one training step of {n} gaussians "
+           f"({rows.shape[0]} instances, {h}x{w}), CUDA events, median of 5: "
+           + ", ".join(f"{k} {v:.3f} ms" for k, v in med.items())
+           + f" (plain backward: median of 3) | peak memory {peak_gb:.2f} "
+           f"GiB")
+    say(7, f"torch.profiler over 3 steps: device busy {busy_ms:.3f} ms of "
+           f"{wall_ms:.3f} ms per step, idle share {idle:.4f} | by device "
+           f"time per step: "
+           + ", ".join(f"{k[:60]} {v:.3f} ms" for k, v in top))
+    return summ["raw_max_abs_err"], med
+
+
 def main():
     smi = phase_device()
     import torch
     device = torch.device("cuda", 0)
     phase_build()
-    err3 = phase_kernel_vs_plain(device)
-    args, params, alive, prior, cams, launches = phase_main_path(device)
+    err3, err3b = phase_kernel_vs_plain(device)
+    args, params, alive, prior, cams, _ = phase_main_path(device)
     err5, med = phase_full_size(args, params, alive, prior, cams[0], smi)
+    targs, scene, launches = phase_train(device, params)
+    phase_train_cli()
+    err7, med7 = phase_train_step(targs, scene, params, device, smi)
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "composite_fwd", "route": "cuda",
         "source": "gslidar_tpu_torch/csrc/composite_fwd.cu",
         "replaces": "gslidar_tpu/raster/pallas_fwd.py:282",
-        "launches": launches, "max_abs_err": max(err3, err5),
-        "ms": med["kernel"], "plain_ms": med["plain"]}]}))
+        "launches": launches[0], "max_abs_err": max(err3, err5),
+        "ms": med["kernel"], "plain_ms": med["plain"]}, {
+        "name": "composite_bwd", "route": "cuda",
+        "source": "gslidar_tpu_torch/csrc/composite_bwd.cu",
+        "replaces": "gslidar_tpu/raster/pallas_bwd.py:66",
+        "launches": launches[1], "max_abs_err": max(err3b, err7),
+        "ms": med7["backward kernel"],
+        "plain_ms": med7["plain backward"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

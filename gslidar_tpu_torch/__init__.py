@@ -16,7 +16,7 @@ for CPU tensors and the kernel for CUDA tensors; it never falls back.
 This package imports no JAX. From ``gslidar_tpu`` it reuses only the
 numpy modules: ``data.cameras``, ``data.kitti360``, ``data.synthetic``,
 ``utils.ply``, ``utils.general`` and ``native`` (plus ``config`` in the
-command-line entry point).
+command-line entry points).
 """
 
 __version__ = "0.1.0"

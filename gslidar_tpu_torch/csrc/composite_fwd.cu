@@ -38,6 +38,10 @@
 //   * misc slots as pallas_fwd.py:545-552, except slot 5, which holds the
 //     number of instances this CTA walked (where the backward stops).
 //
+// The staging and the per-pixel intersection are in composite_common.cuh,
+// which the backward kernel (composite_bwd.cu) shares, so that it walks
+// every pixel exactly as this kernel did.
+//
 // Built without --use_fast_math and with --fmad=false: the per-instance
 // and per-pixel arithmetic is then the same IEEE sequence, operation for
 // operation, as the plain PyTorch version in raster/composite_fwd.py, so
@@ -47,29 +51,11 @@
 
 #include <cuda_runtime.h>
 
+#include "composite_common.cuh"
+
 namespace {
 
-constexpr int MAX_BLEND = 16;              // C + S
-constexpr float T_STOP = 1e-4f;
-constexpr float ALPHA_EPS = 1.0f / 255.0f;
-constexpr float MAX_ALPHA = 0.99f;
-constexpr float FILTER_INV_SQUARE = 2.0f;
-
-// per-instance fields staged in shared memory, laid out [field][blockDim]
-enum Field {
-  F_AX, F_AY, F_AZ,       // Tu x Tv
-  F_BX, F_BY, F_BZ,       // Tu x Tw
-  F_GX, F_GY, F_GZ,       // Tw x Tv
-  F_NPC,                  // (u_cam x v_cam) . p_cam
-  F_CX, F_CY, F_RC,       // splat centre pixel (seam-wrapped) and range
-  F_OPA,
-  F_N1, F_N2, F_N3,       // flip-signed unit normal
-  F_BLEND                 // then C colors and S features
-};
-
-struct Params {
-  float near, far, vmin, vmax, hmin, hmax, wrap_w, wrap_inv;
-};
+using namespace gslidar;
 
 // MAX_THREADS bounds the tile's pixel count: 256 (16x16 tiles) lets the
 // compiler keep every accumulator in registers; 1024 caps it at 64.
@@ -94,14 +80,7 @@ composite_fwd_kernel(const float* __restrict__ rows, int D,
 
   const float fW = (float)W;
   const float fH = (float)H;
-  const float fpx = (float)px;
-  const float fpy = (float)py;
-  const float phi = fpx * (prm.hmax - prm.hmin) / fW + prm.hmin;
-  const float theta = fpy * (prm.vmax - prm.vmin) / fH + prm.vmin;
-  const float sp = sinf(phi), cp = cosf(phi);
-  const float st = sinf(theta), ct = cosf(theta);
-  const float ca = st * cp;
-  const float cg = -(st * sp);
+  const Ray ray = pixel_ray(px, py, W, H, prm);
   const float tcx = (float)(tx * tile_w) + 0.5f * (float)(tile_w - 1);
 
   float T = inside ? 1.0f : 0.0f;
@@ -125,77 +104,18 @@ composite_fwd_kernel(const float* __restrict__ rows, int D,
 
     const int k = base + tid;
     if (k < end) {
-      const float* r = rows + (size_t)k * D;
-      const float Tux = r[0], Tuy = r[1], Tuz = r[2];
-      const float Tvx = r[3], Tvy = r[4], Tvz = r[5];
-      const float Twx = r[6], Twy = r[7], Twz = r[8];
-      // splat centre from p_cam = (Tuz, Tvz, Twz), guarded at the origin
-      const bool degen = (Tuz * Tuz + Twz * Twz) < 1e-20f;
-      const float u_s = degen ? 0.0f : Tuz;
-      const float w_s = degen ? 1.0f : Twz;
-      const float phi_c = atan2f(u_s, w_s);
-      const float theta_c = atan2f(sqrtf(u_s * u_s + w_s * w_s), -Tvz);
-      const float r_c = sqrtf(Tuz * Tuz + Tvz * Tvz + Twz * Twz + 1e-24f);
-      float cx = (phi_c - prm.hmin) * fW / (prm.hmax - prm.hmin);
-      const float cy = (theta_c - prm.vmin) * fH / (prm.vmax - prm.vmin);
-      // circular seam: wrap the centre once around the tile centre
-      // (a no-op when wrap_w = wrap_inv = 0)
-      cx = cx - prm.wrap_w * rintf((cx - tcx) * prm.wrap_inv);
-      // camera-facing normal: flip-signed normalize(u_cam x v_cam)
-      const float c1 = Tvx * Twy - Twx * Tvy;
-      const float c2 = Twx * Tuy - Tux * Twy;
-      const float c3 = Tux * Tvy - Tvx * Tuy;
-      const float dot = c1 * Tuz + c2 * Tvz + c3 * Twz;
-      const float sign = dot < 0.0f ? 1.0f : -1.0f;
-      const float si = sign * rsqrtf(c1 * c1 + c2 * c2 + c3 * c3 + 1e-30f);
-
-      float* s = smem + tid;
-      s[F_AX * B] = Tuy * Tvz - Tuz * Tvy;
-      s[F_AY * B] = Tuz * Tvx - Tux * Tvz;
-      s[F_AZ * B] = Tux * Tvy - Tuy * Tvx;
-      s[F_BX * B] = Tuy * Twz - Tuz * Twy;
-      s[F_BY * B] = Tuz * Twx - Tux * Twz;
-      s[F_BZ * B] = Tux * Twy - Tuy * Twx;
-      s[F_GX * B] = Twy * Tvz - Twz * Tvy;
-      s[F_GY * B] = Twz * Tvx - Twx * Tvz;
-      s[F_GZ * B] = Twx * Tvy - Twy * Tvx;
-      s[F_NPC * B] = dot;
-      s[F_CX * B] = cx;
-      s[F_CY * B] = cy;
-      s[F_RC * B] = r_c;
-      s[F_OPA * B] = r[9];
-      s[F_N1 * B] = c1 * si;
-      s[F_N2 * B] = c2 * si;
-      s[F_N3 * B] = c3 * si;
-      for (int c = 0; c < NB; ++c) s[(F_BLEND + c) * B] = r[10 + c];
+      stage_instance(rows + (size_t)k * D, smem + tid, B, NB, fW, fH, tcx,
+                     prm);
     }
     __syncthreads();
 
     const int n = min(B, end - base);
     for (int j = 0; j < n; ++j) {
       const float* s = smem + j;
-      // ray-splat intersection through the linear form
-      // p = st*cp*(Tu x Tv) + ct*(Tu x Tw) - st*sp*(Tw x Tv)
-      const float p1 = ca * s[F_AX * B] + ct * s[F_BX * B] + cg * s[F_GX * B];
-      const float p2 = ca * s[F_AY * B] + ct * s[F_BY * B] + cg * s[F_GY * B];
-      const float p3 = ca * s[F_AZ * B] + ct * s[F_BZ * B] + cg * s[F_GZ * B];
-      const bool p3ok = p3 != 0.0f;
-      const float rp3 = 1.0f / (p3ok ? p3 : 1.0f);
-      const float s1 = p1 * rp3;
-      const float s2 = p2 * rp3;
-      const float rho3d = s1 * s1 + s2 * s2;
-      const float dxp = s[F_CX * B] - fpx;
-      const float dyp = s[F_CY * B] - fpy;
-      const float rho2d = FILTER_INV_SQUARE * (dxp * dxp + dyp * dyp);
-      const bool use3d = rho3d <= rho2d;
-      // NaN-propagating min, like torch.minimum: a NaN rho3d rejects
-      const float rho = rho3d > rho2d ? rho2d : rho3d;
-      const float d = use3d ? s[F_NPC * B] * rp3 : s[F_RC * B];
-      const float a_raw = s[F_OPA * B] * expf(-0.5f * rho);
-      const float alpha = a_raw > MAX_ALPHA ? MAX_ALPHA : a_raw;
-      const bool ok = p3ok && d >= prm.near && d <= prm.far &&
-                      alpha >= ALPHA_EPS;
-      if (!ok) continue;
+      const Hit h = intersect(s, B, ray, prm);
+      if (!h.ok) continue;
+      const float alpha = h.alpha;
+      const float d = h.d;
       const float T_before = T;
       const float one_m = 1.0f - alpha;
       T = T_before * one_m;

@@ -36,13 +36,15 @@ def render(params: G.Params, alive: torch.Tensor, viewmat, campos, timestamp,
            towards_idx, prior_param, bg, sh_degree, scale_factor,
            cfg: G.GaussianConfig, settings: RasterSettings, *,
            dynamic: bool, median_depth: bool = False, time_shift=0.0,
-           use_prior: bool = True, full360: bool = False) -> RenderPkg:
+           T_tap=None, use_prior: bool = True,
+           full360: bool = False) -> RenderPkg:
     """One panorama render.
 
     Args:
         towards_idx: 0 = forward, 1 = backward (selects the prior half).
         prior_param: [1, h, 2w] raydrop prior logits (or None).
         time_shift: scalar self-supervision shift.
+        T_tap: optional [P, 3, 3] zero tap on the splat frame (rasterize).
         full360: the render covers the full stitched 360 panorama in one
             pass (settings must be the wrap_x full-width config); the prior
             is re-laid-out to the stitched break order (0, w/2, 3w/2, 2w)
@@ -70,7 +72,8 @@ def render(params: G.Params, alive: torch.Tensor, viewmat, campos, timestamp,
 
     out: RasterOut = rasterize(
         means3D, scales, rotations, opacity, shs, features, mask,
-        viewmat, campos, bg, sh_degree, scale_factor, settings)
+        viewmat, campos, bg, sh_degree, scale_factor, settings,
+        T_tap=T_tap)
 
     intensity_sh = out.color[2:3]
     raydrop = out.color[3:4]

@@ -1,7 +1,11 @@
-"""Training orchestration (port of gslidar_tpu/engine/train.py).
+"""The training step (port of gslidar_tpu/engine/train.py; reference
+train.py:150-375).
 
-For now only the camera batch the render path consumes; the training
-step comes to this module with the backward kernel.
+One step renders one camera through the kernels, assembles the losses,
+runs autograd back through the backward compositing kernel, preprocess,
+SH and the model activations, accumulates the densification statistics
+off a zero T tap, and applies per-group Adam to the gaussians and the
+prior's own Adam. The state is a ``TrainState`` of exact-size tensors.
 """
 
 from __future__ import annotations
@@ -10,6 +14,17 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from gslidar_tpu_torch.engine.losses import compute_losses
+from gslidar_tpu_torch.engine.render import render
+from gslidar_tpu_torch.models import gaussians as G
+from gslidar_tpu_torch.models.densify import add_densification_stats
+from gslidar_tpu_torch.models.optim import (AdamState, adam_from_numpy,
+                                            adam_step, group_lrs, init_adam)
+from gslidar_tpu_torch.models.raydrop_prior import PriorAdam
+from gslidar_tpu_torch.raster.preprocess import build_transmat
+from gslidar_tpu_torch.raster.rasterize import densify_grads_from_T_tap
+from gslidar_tpu_torch.raster.settings import RasterSettings
 
 
 class CameraBatch(NamedTuple):
@@ -33,3 +48,106 @@ def camera_to_batch(cam, device) -> CameraBatch:
         towards_idx=0 if cam.towards == "forward" else 1,
         pts_depth=t(cam.pts_depth),
         pts_intensity=t(cam.pts_intensity))
+
+
+class TrainState(NamedTuple):
+    params: G.Params
+    aux: G.GaussianAux
+    opt: AdamState
+    prior: torch.Tensor
+    prior_opt: tuple
+
+
+def init_train_state(params, aux, prior) -> TrainState:
+    return TrainState(params=params, aux=aux, opt=init_adam(params),
+                      prior=prior, prior_opt=PriorAdam.init(prior))
+
+
+def state_from_numpy(state, device) -> TrainState:
+    """A gslidar_tpu TrainState with numpy leaves -> this package's, cut to
+    its ``alive`` rows."""
+    keep = np.asarray(state.aux.alive)
+    return TrainState(
+        params=G.params_from_numpy(state.params, device, keep),
+        aux=G.GaussianAux.from_numpy(state.aux, device),
+        opt=adam_from_numpy(state.opt.mu, state.opt.nu, state.opt.count,
+                            device, keep),
+        prior=torch.tensor(np.asarray(state.prior, np.float32),
+                           device=device),
+        prior_opt=PriorAdam.from_numpy(
+            [np.asarray(x) for x in state.prior_opt], device))
+
+
+def make_train_step(args, cfg: G.GaussianConfig, settings: RasterSettings,
+                    bg):
+    """The train step for one resolution: ``train_step(state, cam,
+    iteration, sh_degree, time_shift, stats_on, apply_update=True)`` ->
+    (new state, loss, log, grads), where grads holds each param group's
+    gradient and the prior's (``"prior"``). ``stats_on`` gates the
+    densification statistics; ``apply_update=False`` skips the gaussians'
+    Adam (the reference's densify iterations, train.py:356-375); the prior
+    always steps."""
+    dynamic = bool(args.dynamic)
+    median_depth = bool(args.get("median_depth", False))
+    sf = float(args.scale_factor)
+
+    def train_step(state: TrainState, cam: CameraBatch, iteration,
+                   sh_degree, time_shift, stats_on, apply_update=True):
+        params = {k: v.detach().requires_grad_(True)
+                  for k, v in state.params.items()}
+        prior = state.prior.detach().requires_grad_(True)
+        n = state.aux.alive.shape[0]
+        T_tap = torch.zeros(n, 3, 3, device=prior.device,
+                            requires_grad=True)
+        pkg = render(params, state.aux.alive, cam.viewmat, cam.campos,
+                     cam.timestamp, cam.towards_idx, prior, bg, sh_degree, sf,
+                     cfg, settings, dynamic=dynamic,
+                     median_depth=median_depth, time_shift=time_shift,
+                     T_tap=T_tap)
+        opa = G.get_opacity(params)[:, 0]
+        loss, log = compute_losses(pkg, cam.pts_depth, cam.pts_intensity,
+                                   iteration, args, opa,
+                                   state.aux.alive.to(torch.float32))
+        keys = list(params)
+        grads = torch.autograd.grad(loss, [params[k] for k in keys]
+                                    + [prior, T_tap], allow_unused=True)
+        gp = {k: torch.zeros_like(params[k]) if g is None else g
+              for k, g in zip(keys, grads)}
+        gprior, gtap = grads[-2], grads[-1]
+
+        with torch.no_grad():
+            # densification statistics (reference train.py:356-362)
+            vs_grad = densify_grads_from_T_tap(gtap, _transmat_for_stats(
+                state.params, cam.viewmat, cfg, cam.timestamp, time_shift),
+                settings)
+            aux = state.aux
+            if stats_on:
+                aux = add_densification_stats(aux, vs_grad, gp["t"],
+                                              pkg.radii, pkg.visibility)
+            if apply_update:
+                new_params, new_opt = adam_step(
+                    state.params, gp, state.opt, group_lrs(args, iteration))
+            else:
+                new_params, new_opt = state.params, state.opt
+            new_prior, new_prior_opt = PriorAdam.step(
+                state.prior, gprior, state.prior_opt, args.raydrop_prior_lr)
+        log = {k: v.detach() if torch.is_tensor(v) else v
+               for k, v in log.items()}
+        log["num_pairs"] = pkg.num_pairs
+        return (TrainState(new_params, aux, new_opt, new_prior,
+                           new_prior_opt), loss.detach(), log,
+                {**gp, "prior": gprior})
+
+    return train_step
+
+
+@torch.no_grad()
+def _transmat_for_stats(params, viewmat, cfg, timestamp, time_shift):
+    """The splat frame T of the forward's means, for the viewspace-gradient
+    conversion of the densification statistics."""
+    ts = timestamp - time_shift
+    means3D = G.get_xyz_shm(params, ts, cfg)
+    means3D = means3D + G.get_inst_velocity(params, cfg) * time_shift
+    T, _ = build_transmat(means3D, G.get_scaling(params), params["rotation"],
+                          viewmat)
+    return T

@@ -18,7 +18,8 @@ imported.
 
 ``--fmad=false`` keeps nvcc from contracting a*b + c into fused
 multiply-adds, so each kernel runs the same IEEE operation sequence as its
-plain PyTorch version (see the note in csrc/composite_fwd.cu).
+plain PyTorch version (see the note in csrc/composite_fwd.cu), and the
+backward kernel recomputes the forward's walk bit for bit.
 """
 
 from __future__ import annotations
@@ -54,6 +55,18 @@ SIGNATURES = {
         _I, _I,                          # compute_distortion, contrib
         _P, _P, _P, _P,                  # color, feat, depth, misc
         _P,                              # stream
+    ],
+    "gslidar_composite_bwd": [
+        _I, _P, _I, _P, _P,              # device, rows, D, tile_starts,
+                                         # walked
+        _I, _I, _I, _I, _I, _I, _I, _I,  # n_tiles, tiles_x, tile_h, tile_w,
+                                         # H, W, C, S
+        _F, _F, _F, _F, _F, _F, _F, _F,  # near, far, vmin, vmax, hmin,
+                                         # hmax, wrap_w, wrap_inv
+        _I,                              # compute_distortion
+        _P, _P, _P, _P,                  # gC, gF, gD4, gT
+        _P, _P, _P, _P,                  # color, feat, depth, misc
+        _P, _P,                          # grad, stream
     ],
 }
 

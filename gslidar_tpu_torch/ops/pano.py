@@ -53,6 +53,19 @@ def pano_to_lidar(range_image: torch.Tensor, vfov, hfov):
     return pts, mask
 
 
+def depth_to_normal(range_image: torch.Tensor, vfov, hfov) -> torch.Tensor:
+    """Central-difference normals of a range panorama [1, H, W] -> [3, H, W]
+    with a zero border ring (utils/graphics_utils.py:121-149)."""
+    H, W = range_image.shape[-2:]
+    points = pixel_dirs(H, W, vfov, hfov, device=range_image.device) \
+        * range_image
+    dxv = points[:, 2:, 1:-1] - points[:, :-2, 1:-1]
+    dyv = points[:, 1:-1, 2:] - points[:, 1:-1, :-2]
+    n = torch.linalg.cross(dxv, dyv, dim=0)
+    n = n / torch.sqrt(torch.sum(n * n, dim=0, keepdim=True) + 1e-24)
+    return torch.nn.functional.pad(n, (1, 1, 1, 1))
+
+
 def project_points_to_pano(points_cam: np.ndarray, intensity: np.ndarray,
                            H: int, W: int, vfov, hfov):
     """Nearest-return z-buffer of camera-frame points into range and

@@ -63,14 +63,161 @@ def make_params(scale_factor, settings: RasterSettings, angle_bounds=None):
 
 
 def _untile(x: torch.Tensor, settings: RasterSettings) -> torch.Tensor:
-    """[n_tiles, ch, pix] -> [ch, H, W] (cropping the tile padding)."""
+    """[n_tiles, ch, pix] -> contiguous [ch, H, W] (cropping the tile
+    padding)."""
     ch = x.shape[1]
     x = x.reshape(settings.tiles_y, settings.tiles_x, ch, settings.tile_h,
                   settings.tile_w)
     x = x.permute(2, 0, 3, 1, 4).reshape(
         ch, settings.tiles_y * settings.tile_h,
         settings.tiles_x * settings.tile_w)
-    return x[:, :settings.height, :settings.width]
+    return x[:, :settings.height, :settings.width].contiguous()
+
+
+class TileGrid(NamedTuple):
+    """The kernel's scalars as float32 device scalars, and each tile
+    pixel's coordinates and ray, [n_tiles, pix]."""
+    near: torch.Tensor
+    far: torch.Tensor
+    fW: torch.Tensor
+    fH: torch.Tensor
+    hmin: torch.Tensor
+    hmax: torch.Tensor
+    vmin: torch.Tensor
+    vmax: torch.Tensor
+    wrap_w: torch.Tensor
+    wrap_inv: torch.Tensor
+    inside: torch.Tensor
+    fpx: torch.Tensor
+    fpy: torch.Tensor
+    ca: torch.Tensor
+    ct: torch.Tensor
+    cg: torch.Tensor
+    tcx: torch.Tensor       # [n_tiles] tile centre column
+
+
+def tile_grid(params, settings: RasterSettings, dev) -> TileGrid:
+    f32 = torch.float32
+
+    def scalar(v):
+        # device float32 scalars: the kernel's float arithmetic (a CPU
+        # scalar divisor would be turned into a reciprocal multiply on CUDA)
+        return torch.tensor(v, dtype=f32, device=dev)
+
+    near, far, vmin, vmax, hmin, hmax, wrap_w, wrap_inv = (
+        scalar(p) for p in params)
+    H, W = settings.height, settings.width
+    th, tw, gx = settings.tile_h, settings.tile_w, settings.tiles_x
+    fW, fH = scalar(float(W)), scalar(float(H))
+    tid = torch.arange(settings.num_tiles, device=dev)
+    ty, tx = tid // gx, tid % gx
+    k = torch.arange(settings.tile_pixels, device=dev)
+    px = tx[:, None] * tw + k[None, :] % tw              # [n_tiles, pix]
+    py = ty[:, None] * th + k[None, :] // tw
+    fpx, fpy = px.to(f32), py.to(f32)
+    phi = fpx * (hmax - hmin) / fW + hmin
+    theta = fpy * (vmax - vmin) / fH + vmin
+    sp, cp = torch.sin(phi), torch.cos(phi)
+    st, ct = torch.sin(theta), torch.cos(theta)
+    return TileGrid(near=near, far=far, fW=fW, fH=fH, hmin=hmin, hmax=hmax,
+                    vmin=vmin, vmax=vmax, wrap_w=wrap_w, wrap_inv=wrap_inv,
+                    inside=(px < W) & (py < H), fpx=fpx, fpy=fpy, ca=st * cp,
+                    ct=ct, cg=-(st * sp),
+                    tcx=(tx * tw).to(f32) + 0.5 * (tw - 1))
+
+
+class Instances(NamedTuple):
+    """The kernel's per-instance staging terms, [t, B] each (nrm and
+    blend carry a trailing channel axis)."""
+    T: tuple                # the 9 T columns Tux .. Twz
+    A: tuple                # Tu x Tv
+    Bc: tuple               # Tu x Tw
+    Gc: tuple               # Tw x Tv
+    npc: torch.Tensor
+    cx: torch.Tensor        # seam-wrapped around the tile centre
+    cy: torch.Tensor
+    r_c: torch.Tensor
+    opa: torch.Tensor
+    c: tuple                # u_cam x v_cam
+    si: torch.Tensor        # flip-signed inverse norm of c
+    nrm: torch.Tensor       # [t, B, 3]
+    blend: torch.Tensor     # [t, B, C + S]
+
+
+def stage_instances(d_, g: TileGrid, tcx, C: int, S: int) -> Instances:
+    """Per-instance terms of rows d_ [t, B, D] (composite_common.cuh
+    stage_instance); tcx [t, 1] is each row's tile centre column."""
+    Tux, Tuy, Tuz = d_[..., 0], d_[..., 1], d_[..., 2]
+    Tvx, Tvy, Tvz = d_[..., 3], d_[..., 4], d_[..., 5]
+    Twx, Twy, Twz = d_[..., 6], d_[..., 7], d_[..., 8]
+    degen = (Tuz * Tuz + Twz * Twz) < 1e-20
+    u_s = torch.where(degen, 0.0, Tuz)
+    w_s = torch.where(degen, 1.0, Twz)
+    phi_c = torch.atan2(u_s, w_s)
+    theta_c = torch.atan2(torch.sqrt(u_s * u_s + w_s * w_s), -Tvz)
+    r_c = torch.sqrt(Tuz * Tuz + Tvz * Tvz + Twz * Twz + 1e-24)
+    cx = (phi_c - g.hmin) * g.fW / (g.hmax - g.hmin)
+    cy = (theta_c - g.vmin) * g.fH / (g.vmax - g.vmin)
+    cx = cx - g.wrap_w * torch.round((cx - tcx) * g.wrap_inv)
+    c1 = Tvx * Twy - Twx * Tvy
+    c2 = Twx * Tuy - Tux * Twy
+    c3 = Tux * Tvy - Tvx * Tuy
+    npc = c1 * Tuz + c2 * Tvz + c3 * Twz
+    sign = torch.where(npc < 0, 1.0, -1.0)
+    si = sign * torch.rsqrt(c1 * c1 + c2 * c2 + c3 * c3 + 1e-30)
+    return Instances(
+        T=(Tux, Tuy, Tuz, Tvx, Tvy, Tvz, Twx, Twy, Twz),
+        A=(Tuy * Tvz - Tuz * Tvy, Tuz * Tvx - Tux * Tvz,
+           Tux * Tvy - Tuy * Tvx),
+        Bc=(Tuy * Twz - Tuz * Twy, Tuz * Twx - Tux * Twz,
+            Tux * Twy - Tuy * Twx),
+        Gc=(Twy * Tvz - Twz * Tvy, Twz * Tvx - Twx * Tvz,
+            Twx * Tvy - Twy * Tvx),
+        npc=npc, cx=cx, cy=cy, r_c=r_c, opa=d_[..., 9], c=(c1, c2, c3),
+        si=si, nrm=torch.stack([c1 * si, c2 * si, c3 * si], dim=-1),
+        blend=d_[..., PAYLOAD_BASE:PAYLOAD_BASE + C + S])
+
+
+class Hits(NamedTuple):
+    """One batch's (instance, pixel) pairs, [t, B(instances), pix]."""
+    s1: torch.Tensor
+    s2: torch.Tensor
+    rp3: torch.Tensor
+    use3d: torch.Tensor
+    depth: torch.Tensor
+    G: torch.Tensor
+    a_raw: torch.Tensor
+    alpha: torch.Tensor
+    ok: torch.Tensor        # in range and accepted by the filters
+
+
+def intersect(inst: Instances, g: TileGrid, idx, in_rng) -> Hits:
+    """composite_common.cuh intersect() for the tiles ``idx``."""
+    def i_(v):
+        return v[:, :, None]
+    ca, ct, cg = g.ca[idx, None, :], g.ct[idx, None, :], g.cg[idx, None, :]
+    A, Bc, Gc = inst.A, inst.Bc, inst.Gc
+    p1 = ca * i_(A[0]) + ct * i_(Bc[0]) + cg * i_(Gc[0])
+    p2 = ca * i_(A[1]) + ct * i_(Bc[1]) + cg * i_(Gc[1])
+    p3 = ca * i_(A[2]) + ct * i_(Bc[2]) + cg * i_(Gc[2])
+    p3ok = p3 != 0.0
+    rp3 = 1.0 / torch.where(p3ok, p3, 1.0)
+    s1 = p1 * rp3
+    s2 = p2 * rp3
+    rho3d = s1 * s1 + s2 * s2
+    dxp = i_(inst.cx) - g.fpx[idx, None, :]
+    dyp = i_(inst.cy) - g.fpy[idx, None, :]
+    rho2d = FILTER_INV_SQUARE * (dxp * dxp + dyp * dyp)
+    use3d = rho3d <= rho2d
+    rho = torch.minimum(rho3d, rho2d)
+    depth = torch.where(use3d, i_(inst.npc) * rp3, i_(inst.r_c))
+    G = torch.exp(-0.5 * rho)
+    a_raw = i_(inst.opa) * G
+    alpha = torch.clamp_max(a_raw, MAX_ALPHA)
+    ok = (i_(in_rng) & p3ok & (depth >= g.near) & (depth <= g.far)
+          & (alpha >= ALPHA_EPS))
+    return Hits(s1=s1, s2=s2, rp3=rp3, use3d=use3d, depth=depth, G=G,
+                a_raw=a_raw, alpha=alpha, ok=ok)
 
 
 def composite_forward_reference(rows: torch.Tensor, tile_starts: torch.Tensor,
@@ -81,37 +228,14 @@ def composite_forward_reference(rows: torch.Tensor, tile_starts: torch.Tensor,
     f32 = torch.float32
     B = settings.tile_pixels              # one CTA batch = one per pixel
     n_tiles = settings.num_tiles
-    th, tw, gx = settings.tile_h, settings.tile_w, settings.tiles_x
-    H, W = settings.height, settings.width
     N = rows.shape[0]
-
-    def scalar(v):
-        # device float32 scalars: the kernel's float arithmetic (a CPU
-        # scalar divisor would be turned into a reciprocal multiply on CUDA)
-        return torch.tensor(v, dtype=f32, device=dev)
-
-    near, far, vmin, vmax, hmin, hmax, wrap_w, wrap_inv = (
-        scalar(p) for p in params)
-    fW, fH = scalar(float(W)), scalar(float(H))
-
-    tid = torch.arange(n_tiles, device=dev)
-    ty, tx = tid // gx, tid % gx
+    g = tile_grid(params, settings, dev)
+    near, far = g.near, g.far
     k = torch.arange(B, device=dev)
-    px = tx[:, None] * tw + k[None, :] % tw              # [n_tiles, pix]
-    py = ty[:, None] * th + k[None, :] // tw
-    inside = (px < W) & (py < H)
-    fpx, fpy = px.to(f32), py.to(f32)
-    phi = fpx * (hmax - hmin) / fW + hmin
-    theta = fpy * (vmax - vmin) / fH + vmin
-    sp, cp = torch.sin(phi), torch.cos(phi)
-    st, ct = torch.sin(theta), torch.cos(theta)
-    ca = st * cp
-    cg = -(st * sp)
-    tcx = (tx * tw).to(f32) + 0.5 * (tw - 1)             # [n_tiles]
     m_scale = far / (far - near)
 
     z = torch.zeros(n_tiles, B, dtype=f32, device=dev)
-    T_run = inside.to(f32)
+    T_run = g.inside.to(f32)
     acc = torch.zeros(n_tiles, C + S + 3, B, dtype=f32, device=dev)
     wsum, dsum, d2sum = z.clone(), z.clone(), z.clone()
     dist, M1, M2 = z.clone(), z.clone(), z.clone()
@@ -132,62 +256,11 @@ def composite_forward_reference(rows: torch.Tensor, tile_starts: torch.Tensor,
         pos = starts[idx, None] + c * B + k[None, :]         # [t, B]
         in_rng = pos < (starts + counts)[idx, None]
         d_ = rows[torch.clamp(pos, max=max(N - 1, 0))]       # [t, B, D]
-        Tux, Tuy, Tuz = d_[..., 0], d_[..., 1], d_[..., 2]
-        Tvx, Tvy, Tvz = d_[..., 3], d_[..., 4], d_[..., 5]
-        Twx, Twy, Twz = d_[..., 6], d_[..., 7], d_[..., 8]
-        opa = d_[..., 9]
-        blend = d_[..., PAYLOAD_BASE:PAYLOAD_BASE + C + S]
-
-        # ---- per-instance terms (the kernel's staging step) -------------
-        degen = (Tuz * Tuz + Twz * Twz) < 1e-20
-        u_s = torch.where(degen, 0.0, Tuz)
-        w_s = torch.where(degen, 1.0, Twz)
-        phi_c = torch.atan2(u_s, w_s)
-        theta_c = torch.atan2(torch.sqrt(u_s * u_s + w_s * w_s), -Tvz)
-        r_c = torch.sqrt(Tuz * Tuz + Tvz * Tvz + Twz * Twz + 1e-24)
-        cx = (phi_c - hmin) * fW / (hmax - hmin)
-        cy = (theta_c - vmin) * fH / (vmax - vmin)
-        cx = cx - wrap_w * torch.round((cx - tcx[idx, None]) * wrap_inv)
-        c1 = Tvx * Twy - Twx * Tvy
-        c2 = Twx * Tuy - Tux * Twy
-        c3 = Tux * Tvy - Tvx * Tuy
-        npc = c1 * Tuz + c2 * Tvz + c3 * Twz
-        sign = torch.where(npc < 0, 1.0, -1.0)
-        si = sign * torch.rsqrt(c1 * c1 + c2 * c2 + c3 * c3 + 1e-30)
-        nrm = torch.stack([c1 * si, c2 * si, c3 * si], dim=-1)   # [t, B, 3]
-        Ax = Tuy * Tvz - Tuz * Tvy
-        Ay = Tuz * Tvx - Tux * Tvz
-        Az = Tux * Tvy - Tuy * Tvx
-        Bx = Tuy * Twz - Tuz * Twy
-        By = Tuz * Twx - Tux * Twz
-        Bz = Tux * Twy - Tuy * Twx
-        Gx = Twy * Tvz - Twz * Tvy
-        Gy = Twz * Tvx - Twx * Tvz
-        Gz = Twx * Tvy - Twy * Tvx
-
-        # ---- per-pixel intersection: [t, B(instances), pix] -------------
-        def i_(v):
-            return v[:, :, None]
-        ca_, ct_, cg_ = ca[idx, None, :], ct[idx, None, :], cg[idx, None, :]
-        p1 = ca_ * i_(Ax) + ct_ * i_(Bx) + cg_ * i_(Gx)
-        p2 = ca_ * i_(Ay) + ct_ * i_(By) + cg_ * i_(Gy)
-        p3 = ca_ * i_(Az) + ct_ * i_(Bz) + cg_ * i_(Gz)
-        p3ok = p3 != 0.0
-        rp3 = 1.0 / torch.where(p3ok, p3, 1.0)
-        s1 = p1 * rp3
-        s2 = p2 * rp3
-        rho3d = s1 * s1 + s2 * s2
-        dxp = i_(cx) - fpx[idx, None, :]
-        dyp = i_(cy) - fpy[idx, None, :]
-        rho2d = FILTER_INV_SQUARE * (dxp * dxp + dyp * dyp)
-        use3d = rho3d <= rho2d
-        rho = torch.minimum(rho3d, rho2d)
-        depth = torch.where(use3d, i_(npc) * rp3, i_(r_c))
-        alpha = torch.clamp_max(i_(opa) * torch.exp(-0.5 * rho), MAX_ALPHA)
-        ok = (i_(in_rng) & p3ok & (depth >= near) & (depth <= far)
-              & (alpha >= ALPHA_EPS))
-        a = torch.where(ok, alpha, 0.0)
-        d_safe = torch.where(ok, depth, far)
+        inst = stage_instances(d_, g, g.tcx[idx, None], C, S)
+        h = intersect(inst, g, idx, in_rng)
+        ok = h.ok
+        a = torch.where(ok, h.alpha, 0.0)
+        d_safe = torch.where(ok, h.depth, far)
 
         one_m = 1.0 - a
         incl = torch.cumprod(one_m, dim=1)
@@ -196,7 +269,7 @@ def composite_forward_reference(rows: torch.Tensor, tile_starts: torch.Tensor,
         accept = ok & (T_before * one_m >= T_STOP)
         w = torch.where(accept, a * T_before, 0.0)
 
-        fields = torch.cat([blend, nrm], dim=-1)                 # [t, B, F]
+        fields = torch.cat([inst.blend, inst.nrm], dim=-1)       # [t, B, F]
         acc[idx] += torch.einsum("tkp,tkf->tfp", w, fields)
         wsum[idx] += w.sum(1)
         dw = d_safe * w

@@ -106,7 +106,7 @@ def save_outputs(outdir: str, split: str, results) -> None:
         np.save(os.path.join(outdir, f"points_{split}", name), r["points"])
 
 
-def build_scene(args):
+def build_scene(args, shuffle: bool = False):
     from gslidar_tpu.data.kitti360 import read_kitti360_info
     from gslidar_tpu.data.synthetic import read_synthetic_info
     from gslidar_tpu_torch.data.scene import Scene
@@ -115,7 +115,7 @@ def build_scene(args):
     if args.scene_type not in loaders:
         raise ValueError(f"scene_type {args.scene_type!r} is not served by "
                          f"the port yet (have {sorted(loaders)})")
-    return Scene(args, loaders[args.scene_type](args), shuffle=False)
+    return Scene(args, loaders[args.scene_type](args), shuffle=shuffle)
 
 
 def main(argv=None):

@@ -197,7 +197,10 @@ def cuda_device():
 def test_kernel_matches_plain_on_card(cuda_device):
     """On the card, without JAX: the CUDA kernel against its plain version
     on the port's own preprocess and binning (chip_smoke.py's bars), one
-    counted launch, and rasterize refusing inputs that require grad."""
+    counted launch, and gradients flowing through rasterize: one forward
+    and one backward kernel launch, finite gradients that reach every
+    differentiated input."""
+    from gslidar_tpu_torch.raster import composite_bwd as cb
     from gslidar_tpu_torch.raster import composite_fwd as cf
     from gslidar_tpu_torch.raster.binning import bin_gaussians
     from gslidar_tpu_torch.raster.preprocess import preprocess
@@ -227,8 +230,16 @@ def test_kernel_matches_plain_on_card(cuda_device):
     for a_, b_ in zip((k.color, k.feature, k.misc[0:1]),
                       (p.color, p.feature, p.misc[0:1])):
         assert float((a_ - b_).abs()[:, keep].max()) <= 1e-4
-    with pytest.raises(RuntimeError, match="forward-only"):
-        rasterize(sc["means"].requires_grad_(), sc["scales"], sc["quats"],
-                  sc["opac"], sc["shs"], sc["feats"], sc["mask"],
-                  sc["viewmat"], sc["campos"],
-                  torch.zeros(4, device=cuda_device), 3, 1.0, ts)
+    inputs = [sc[k].clone().requires_grad_(True)
+              for k in ("means", "scales", "quats", "opac", "shs", "feats")]
+    fwd0, bwd0 = cf.composite_forward.launches, cb.composite_backward.launches
+    out = rasterize(*inputs, sc["mask"], sc["viewmat"], sc["campos"],
+                    torch.zeros(4, device=cuda_device), 3, 1.0, ts)
+    loss = (out.color.square().sum() + 0.1 * out.depth.sum()
+            + 0.05 * out.feature.sum() + 0.3 * out.alpha.sum())
+    grads = torch.autograd.grad(loss, inputs)
+    torch.cuda.synchronize()
+    assert cf.composite_forward.launches == fwd0 + 1
+    assert cb.composite_backward.launches == bwd0 + 1
+    for g in grads:
+        assert torch.isfinite(g).all() and float(g.abs().max()) > 0

@@ -5,6 +5,8 @@ without a card.
 * the serving entry point, ``python -m gslidar_tpu_torch.render``, renders
   a gslidar_tpu checkpoint of a tiny Synthetic scene on the CPU in a
   subprocess where ``import jax`` fails;
+* the training entry point, ``python -m gslidar_tpu_torch.train``, trains
+  a tiny Synthetic scene for a few steps on the CPU the same way;
 * ``python3 chip_smoke.py`` with CUDA hidden exits non-zero with a clear
   message and prints no result line.
 """
@@ -97,6 +99,26 @@ def test_render_cli_runs_without_jax(tmp_path):
         assert np.isfinite(img).all() and pts.ndim == 2 and pts.shape[1] == 3
         assert 0 <= img[0].min() and img[0].max() <= 1      # raydrop
         assert (img[2] > 0).any()                             # depth
+
+
+def test_train_cli_runs_without_jax(tmp_path):
+    argv = ["-m", "gslidar_tpu_torch.train",
+            "--config", os.path.join(REPO, "configs", "synthetic_smoke.yaml"),
+            "--base_config", os.path.join(REPO, "configs", "base.yaml"),
+            "--device", "cpu", "iterations=3", "hw=[16,64]", "frames=4",
+            "num_pts=1500", f"model_path={tmp_path / 'run'}"]
+    code = (BLOCK_JAX + "import runpy, torch; torch.set_num_threads(2); "
+            f"sys.argv = {argv!r}; "
+            "runpy.run_module('gslidar_tpu_torch.train', "
+            "run_name='__main__', alter_sys=True); "
+            "assert not [m for m in sys.modules if m.startswith('jax') "
+            "and sys.modules[m] is not None]; print('NO_JAX_OK')")
+    r = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "NO_JAX_OK" in r.stdout
+    assert "trained 3 steps of 1500 gaussians" in r.stdout, r.stdout
+    assert (tmp_path / "run" / "scale_factor.txt").exists()
 
 
 def test_chip_smoke_fails_without_a_card():
