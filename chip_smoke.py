@@ -41,7 +41,25 @@ failing phase raises:
    timings (median of 5 after warm-up) of the whole step and of its
    stages, the backward kernel against the plain version (median of 3),
    and the device's idle share over 3 steps from ``torch.profiler``;
-8. the result: the card's nvidia-smi line, one JSON line of the kernels,
+   with the least-time bounds (``gslidar_tpu_torch.microbench.bounds``)
+   of the forward kernel on phase 5's 360-degree view and of both kernels
+   on this training view, and their walked / needed pair ratios;
+8. gather path: ``python -m gslidar_tpu_torch.microbench.dma_gather``
+   driven in-process at the script's shape (a) [1M, 128] f32 by 2,260,992
+   ids and at the binning payload's shape (b) [1M, 18] by 2,662,848 ids
+   (its launch count read just after); then the kernel against its plain
+   version, bitwise, at both shapes; the kernel and
+   ``torch.index_select`` (the plain version) timed in turns (CUDA
+   events, median of 10), with GB/s and the bound;
+9. op-chain path: ``python -m gslidar_tpu_torch.microbench.vpu_ops``
+   driven in-process (its launch count read just after): ns per
+   full-block op by slope between 64 and 512 steps, beside the bound of
+   one op; then all 8 cases x {float32, bfloat16} against their plain
+   versions at 64 steps and at 1 step, where the rolls move the block by
+   16 (roll1) or 128 (roll8) rows (at 64 steps by a multiple of 256, so
+   a wrong roll would go unseen), the bfloat16 rolls also against
+   ``torch.roll`` alone; and the plain versions timed;
+10. the result: the card's nvidia-smi line, one JSON line of the kernels,
    and the last line ``{"ok": true, "device": {...}}``.
 
 Tolerances, forward kernel vs plain: color, features, normal, alpha and
@@ -59,6 +77,15 @@ to the column's largest magnitude must be finite and <= 1e-4, and the
 kernel's table finite everywhere. The two walk the same instances with the
 same decisions, but the plain version takes its transmittance and prefix
 sums with cumprod/cumsum and its pixel sums in another order.
+
+Gather kernel vs plain: bitwise equal (a copy). Op chains vs plain
+(``vpu_ops.check``): float32 mul, fma, select, roll1 and roll8 bit for
+bit on every element (the same IEEE operations: the library is built
+with --fmad=false); float32 exp, div and rsqrt within 1e-5 (each side
+calls its own expf, division and rsqrtf) and bfloat16 within one
+bfloat16 ulp, each on >= 99.9 % of the elements, since a floor that
+wraps near 1.0 may flip an element; the bfloat16 rolls vs ``torch.roll``
+bit for bit on every element.
 """
 
 from __future__ import annotations
@@ -518,6 +545,8 @@ def phase_full_size(args, params, alive, prior, cam, smi):
     from gslidar_tpu_torch.engine.evaluate import (make_eval_render360,
                                                    wrap360_settings)
     from gslidar_tpu_torch.engine.train import camera_to_batch
+    from gslidar_tpu_torch.microbench.bounds import composite_work
+    from gslidar_tpu_torch.microbench.timing import time_ms
     from gslidar_tpu_torch.models import gaussians as G
     from gslidar_tpu_torch.raster.binning import bin_gaussians
     from gslidar_tpu_torch.raster.composite_fwd import (
@@ -555,22 +584,15 @@ def phase_full_size(args, params, alive, prior, cam, smi):
         b = binning()
         rows, starts = b.data_rows.contiguous(), b.tile_starts
         params8 = make_params(sf, s)
-        ok, summ, _ = run_pair(rows, starts, params8, s, 4, 4)
+        ok, summ, kout = run_pair(rows, starts, params8, s, 4, 4)
+        work = composite_work(kout, s, rows.shape[0], 4, 4)
+        del kout
         say(5, f"kernel vs plain at full size ({b.num_pairs} instances, "
                f"{s.height}x{s.width}): {'ok' if ok else 'FAIL'} "
                f"{json.dumps(summ)}")
         if not ok:
             raise RuntimeError("kernel disagrees with its plain version at "
                                "full size")
-
-        def timed(fn):
-            ev0 = torch.cuda.Event(enable_timing=True)
-            ev1 = torch.cuda.Event(enable_timing=True)
-            ev0.record()
-            fn()
-            ev1.record()
-            torch.cuda.synchronize()
-            return ev0.elapsed_time(ev1)
 
         def kern():
             composite_forward(rows, starts, params8, s, 4, 4)
@@ -593,14 +615,14 @@ def phase_full_size(args, params, alive, prior, cam, smi):
         for _ in range(5):                         # in turns
             for k in ("plain", "kernel", "kernel", "plain", "render",
                       "preprocess", "binning"):
-                ms[k].append(timed(stages[k]))
+                ms[k].append(time_ms(stages[k], device))
         med = {k: statistics.median(v) for k, v in ms.items()}
     say(5, f"timing on {smi}: composite kernel {med['kernel']:.3f} ms, "
            f"plain {med['plain']:.3f} ms (median of {len(ms['kernel'])}); "
            f"whole 360 render through the kernel {med['render']:.3f} ms, of "
            f"which preprocess {med['preprocess']:.3f} ms and binning "
            f"{med['binning']:.3f} ms (median of {len(ms['render'])})")
-    return summ["raw_max_abs_err"], med
+    return summ["raw_max_abs_err"], med, work
 
 
 # ---------------------------------------------------------------- phase 6
@@ -699,18 +721,6 @@ def phase_train_cli():
 
 
 # ---------------------------------------------------------------- phase 7
-def timed(fn):
-    """One run of fn between two CUDA events, in ms."""
-    import torch
-    ev0 = torch.cuda.Event(enable_timing=True)
-    ev1 = torch.cuda.Event(enable_timing=True)
-    ev0.record()
-    fn()
-    ev1.record()
-    torch.cuda.synchronize()
-    return ev0.elapsed_time(ev1)
-
-
 def device_idle_share(fn, n):
     """Share of the wall time of n runs of fn in which no kernel, copy or
     memset ran on the card (torch.profiler), and the device time by name."""
@@ -753,6 +763,8 @@ def phase_train_step(args, scene, init_params, device, smi):
                                                 camera_to_batch,
                                                 init_train_state,
                                                 make_train_step)
+    from gslidar_tpu_torch.microbench.bounds import composite_work
+    from gslidar_tpu_torch.microbench.timing import time_ms
     from gslidar_tpu_torch.models import gaussians as G
     from gslidar_tpu_torch.models.densify import add_densification_stats
     from gslidar_tpu_torch.models.optim import adam_step, group_lrs
@@ -794,6 +806,9 @@ def phase_train_step(args, scene, init_params, device, smi):
         co.bin_gaussians, co.composite_backward = bin_orig, bwd_orig
     rows, starts, fwd, _, params8, s, C, S = captured["bwd"]
     gid = captured["binning"].gid_sorted
+    works = {"forward": composite_work(fwd, s, rows.shape[0], C, S),
+             "backward": composite_work(fwd, s, rows.shape[0], C, S,
+                                        backward=True)}
     with torch.no_grad():
         table = composite_backward(*captured["bwd"])
         red = [rows.new_zeros(n, rows.shape[1]).index_add_(0, gid, table)
@@ -856,15 +871,15 @@ def phase_train_step(args, scene, init_params, device, smi):
             grads["t"], pkg.radii, pkg.visibility),
     }
     with torch.no_grad():
-        plain_ms = [timed(lambda: composite_backward_reference(
-            *captured["bwd"])) for _ in range(3)]
+        plain_ms = [time_ms(lambda: composite_backward_reference(
+            *captured["bwd"]), device) for _ in range(3)]
     for fn in stages.values():                      # warm-up
         fn()
     torch.cuda.reset_peak_memory_stats()
     ms = {k: [] for k in stages}
     for _ in range(5):
         for k, fn in stages.items():
-            ms[k].append(timed(fn))
+            ms[k].append(time_ms(fn, device))
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     med = {k: statistics.median(v) for k, v in ms.items()}
     med["plain backward"] = statistics.median(plain_ms)
@@ -880,33 +895,174 @@ def phase_train_step(args, scene, init_params, device, smi):
            f"{wall_ms:.3f} ms per step, idle share {idle:.4f} | by device "
            f"time per step: "
            + ", ".join(f"{k[:60]} {v:.3f} ms" for k, v in top))
-    return summ["raw_max_abs_err"], med
+    return summ["raw_max_abs_err"], med, works
+
+
+# ------------------------------------------------------- compositor bounds
+def say_bounds(phase, label, work, clock_hz, ms):
+    b = work.bound(clock_hz)
+    say(phase, f"bound of the {label}: {b.ms:.4f} ms, set by {b.by} "
+               f"({', '.join(f'{k} {v:.4f}' for k, v in b.terms.items())} "
+               f"ms) | kernel {ms:.3f} ms = {ms / b.ms:.1f}x the bound | "
+               f"pairs needed {work.needed_pairs}, walked "
+               f"{work.walked_pairs}, walked/needed "
+               f"{work.walked_over_needed:.3f} | instances needed "
+               f"{work.needed_instances}, pixels accepting "
+               f"{work.accepting_pixels} | {work.n_bytes} bytes, "
+               f"{work.fp32} fp32 ops, {work.mufu} MUFU ops")
+    return b
+
+
+# ---------------------------------------------------------------- phase 8
+GATHER_SHAPES = {
+    "a": (1_000_000, 128, 17664 * 128),     # the script's own
+    "b": (1_000_000, 18, 2_662_848),        # binning's payload, phase 5
+}
+
+
+def phase_gather(device):
+    """The gather entry point at shapes (a) and (b), its launches counted;
+    then kernel vs plain, bitwise, at both."""
+    import torch
+    from gslidar_tpu_torch.microbench import dma_gather as dg
+    runs = {}
+    dg.gather_rows.launches = 0
+    for name, (P, D, K) in GATHER_SHAPES.items():
+        runs[name] = dg.main(["--device", "cuda", "--rows", str(P),
+                              "--width", str(D), "--ids", str(K),
+                              "--seed", str(SEED)])
+    launches = dg.gather_rows.launches
+    err = 0.0
+    for name, (P, D, K) in GATHER_SHAPES.items():
+        table, ids = dg.make_inputs(P, D, K, SEED, device)
+        kern = dg.gather_rows(table, ids)
+        plain = dg.gather_rows_reference(table, ids)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(kern, plain))
+        err = max(err, float((kern - plain).abs().max()))
+        r = runs[name]
+        b = r["bound"]
+        say(8, f"gather ({name}) [{P}, {D}] f32 by {K} ids: kernel vs plain "
+               f"{'bitwise equal' if equal else 'DIFFER'} | median of 10: "
+               + ", ".join(f"{k} {v:.3f} ms ({r['n_bytes'] / v / 1e6:.1f} "
+                           f"GB/s)" for k, v in r["ms"].items())
+               + f" | bound {b.ms:.3f} ms ({r['n_bytes']} bytes / 3.35 "
+               f"TB/s), kernel at {b.ms / r['ms']['kernel']:.3f} of it")
+        del table, ids, kern, plain
+        if not (equal and r["bitwise"]):
+            raise RuntimeError(f"the gather kernel disagrees at shape {name}")
+    torch.cuda.empty_cache()
+    say(8, f"gather path: {launches} kernel launches over both shapes")
+    if launches == 0:
+        raise RuntimeError("the gather path launched no kernel")
+    # the plain version is torch.index_select, the library call
+    lib = sum(r["ms"]["index_select"] for r in runs.values())
+    return dict(launches=launches, max_abs_err=err,
+                ms=sum(r["ms"]["kernel"] for r in runs.values()),
+                plain_ms=lib, library_ms=lib,
+                bound_ms=sum(r["bound"].ms for r in runs.values()))
+
+
+# ---------------------------------------------------------------- phase 9
+def phase_op_chains(device, clock_hz):
+    """The op-chain entry point, its launches counted; then each of the 16
+    chains against its plain version at 1 and 64 steps (``vpu_ops.check``),
+    and the plain versions timed."""
+    import torch
+    from gslidar_tpu_torch.microbench import vpu_ops as vo
+    from gslidar_tpu_torch.microbench.timing import time_ms
+    vo.op_chain.launches = 0
+    rows = vo.main(["--device", "cuda"])
+    launches = vo.op_chain.launches
+    say(9, f"op-chain path: {launches} kernel launches")
+    if launches == 0:
+        raise RuntimeError("the op-chain path launched no kernel")
+    err, plain_ms, bad = 0.0, 0.0, []
+    for r in rows:
+        x = vo.base_block(device, getattr(torch, r["dtype"]))
+        checks = vo.check(x, r["case"])
+        torch.cuda.synchronize()
+        r["plain_ms"] = time_ms(lambda: vo.op_chain_reference(x, r["case"]),
+                                device)
+        plain_ms += r["plain_ms"]
+        err = max([err] + [c["max_abs"] for c in checks
+                           if c["what"].startswith("plain")])
+        bad += [(r["case"], r["dtype"], c["what"]) for c in checks
+                if not c["ok"]]
+        say(9, f"{r['case']:6s} {r['dtype']:8s}: kernel within the bar on "
+               + "; ".join(f"{c['agree']:.6f} of elements vs {c['what']} "
+                           f"(needs {c['required']}, max abs "
+                           f"{c['max_abs']:.3g})" for c in checks)
+               + f" | {r['ns_per_op']:.2f} ns per op by slope (bound "
+               f"{r['op_bound_ns']:.2f} ns), chain of 64 steps "
+               f"{r['ms']:.4f} ms (bound {r['bound'].ms:.4f} ms, plain "
+               f"{r['plain_ms']:.2f} ms)")
+    f32_exp = next(r for r in rows
+                   if r["case"] == "exp" and r["dtype"] == "float32")
+    say(9, f"MUFU check: the bound assumes 16 per clock per SM at "
+           f"{clock_hz / 1e6:.0f} MHz, {f32_exp['op_bound_ns']:.2f} ns per "
+           f"float32 full-block op; measured by slope: "
+           + ", ".join(f"{r['case']} {r['dtype']} {r['ns_per_op']:.2f} ns"
+                       for r in rows if r["case"] in ("exp", "div", "rsqrt")))
+    if bad:
+        raise RuntimeError(f"op chains disagree with their plain versions: "
+                           f"{bad}")
+    return dict(launches=launches, max_abs_err=err,
+                ms=sum(r["ms"] for r in rows), plain_ms=plain_ms,
+                library_ms=None,
+                bound_ms=sum(r["bound"].ms for r in rows))
 
 
 def main():
     smi = phase_device()
     import torch
+    from gslidar_tpu_torch.microbench.bounds import max_sm_clock_hz
     device = torch.device("cuda", 0)
+    clock_hz = max_sm_clock_hz()
     phase_build()
     err3, err3b = phase_kernel_vs_plain(device)
     args, params, alive, prior, cams, _ = phase_main_path(device)
-    err5, med = phase_full_size(args, params, alive, prior, cams[0], smi)
+    err5, med, work5 = phase_full_size(args, params, alive, prior, cams[0],
+                                       smi)
     targs, scene, launches = phase_train(device, params)
     phase_train_cli()
-    err7, med7 = phase_train_step(targs, scene, params, device, smi)
+    err7, med7, works7 = phase_train_step(targs, scene, params, device, smi)
+    bound_fwd = say_bounds(7, "forward kernel on phase 5's 360-degree view",
+                           work5, clock_hz, med["kernel"])
+    say_bounds(7, "forward kernel on the training view", works7["forward"],
+               clock_hz, med7["forward kernel"])
+    bound_bwd = say_bounds(7, "backward kernel on the training view",
+                           works7["backward"], clock_hz,
+                           med7["backward kernel"])
+    del params, alive, prior, cams, scene
+    torch.cuda.empty_cache()
+    gather = phase_gather(device)
+    chains = phase_op_chains(device, clock_hz)
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "composite_fwd", "route": "cuda",
         "source": "gslidar_tpu_torch/csrc/composite_fwd.cu",
         "replaces": "gslidar_tpu/raster/pallas_fwd.py:282",
         "launches": launches[0], "max_abs_err": max(err3, err5),
-        "ms": med["kernel"], "plain_ms": med["plain"]}, {
+        "ms": med["kernel"], "plain_ms": med["plain"],
+        "bound_ms": bound_fwd.ms, "bound_by": bound_fwd.bound_by,
+        "library_ms": None}, {
         "name": "composite_bwd", "route": "cuda",
         "source": "gslidar_tpu_torch/csrc/composite_bwd.cu",
         "replaces": "gslidar_tpu/raster/pallas_bwd.py:66",
         "launches": launches[1], "max_abs_err": max(err3b, err7),
         "ms": med7["backward kernel"],
-        "plain_ms": med7["plain backward"]}]}))
+        "plain_ms": med7["plain backward"],
+        "bound_ms": bound_bwd.ms, "bound_by": bound_bwd.bound_by,
+        "library_ms": None}, {
+        "name": "gather_rows", "route": "cuda",
+        "source": "gslidar_tpu_torch/csrc/gather_rows.cu",
+        "replaces": "scripts/microbench_dma_gather.py:88",
+        "bound_by": "bytes", **gather}, {
+        "name": "op_chain", "route": "cuda",
+        "source": "gslidar_tpu_torch/csrc/op_chain.cu",
+        "replaces": "scripts/microbench_vpu_ops.py:43",
+        "bound_by": "operations", **chains}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

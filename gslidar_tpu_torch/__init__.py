@@ -13,10 +13,10 @@ a CUDA C++ kernel under ``csrc/``, built with ``nvcc`` at first use
 version of the same function beside it. The wrapper runs the plain version
 for CPU tensors and the kernel for CUDA tensors; it never falls back.
 
-This package imports no JAX. From ``gslidar_tpu`` it reuses only the
-numpy modules: ``data.cameras``, ``data.kitti360``, ``data.synthetic``,
-``utils.ply``, ``utils.general`` and ``native`` (plus ``config`` in the
-command-line entry points).
+This package imports no JAX and nothing of ``gslidar_tpu``. It carries
+its own copies of the numpy modules it needs from there (``config``,
+``data.cameras``, ``data.kitti360``, ``data.synthetic``, ``utils.general``,
+``utils.ply``, ``native``), each named after its original.
 """
 
 __version__ = "0.1.0"

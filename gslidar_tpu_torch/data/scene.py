@@ -2,17 +2,17 @@
 (port of gslidar_tpu/data/scene.py; reference scene/__init__.py).
 
 The JAX module reaches JAX through its ``ops/pano.py``; this one uses the
-port's numpy ``project_points_to_pano`` and otherwise the JAX package's
-numpy-only camera types.
+port's numpy ``project_points_to_pano`` and its own copies of the camera
+types and the pair shuffle.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from gslidar_tpu.data.cameras import Camera, CameraInfo, SceneInfo
-from gslidar_tpu.utils.general import shuffle_by_pairs
+from gslidar_tpu_torch.data.cameras import Camera, CameraInfo, SceneInfo
 from gslidar_tpu_torch.ops.pano import project_points_to_pano
+from gslidar_tpu_torch.utils.general import shuffle_by_pairs
 
 
 def load_cam(args, idx: int, info: CameraInfo, resolution_scale) -> Camera:

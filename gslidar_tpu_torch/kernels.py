@@ -2,11 +2,15 @@
 
 The sources under ``gslidar_tpu_torch/csrc/`` are compiled at first use
 with ``nvcc`` into one shared library with a plain C interface, which is
-loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds):
+loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds).
+Each source compiles in its own nvcc process, all started together, and
+one more links them:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
-         -Xptxas=-v -shared -Xcompiler -fPIC
-         -o build/gslidar_tpu_torch/<lib>.so gslidar_tpu_torch/csrc/*.cu
+         -Xptxas=-v -Xcompiler -fPIC -c -o <obj>.o
+         gslidar_tpu_torch/csrc/<src>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o build/gslidar_tpu_torch/<lib>.so <obj>.o ...
 
 The library goes to ``build/gslidar_tpu_torch/`` beside the package and
 is named by a hash of the sources and flags, so an edited source is
@@ -37,12 +41,13 @@ PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build",
                          "gslidar_tpu_torch")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler",
-              "-fPIC")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xptxas=-v",
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 # C signatures of the exported launchers: name -> argtypes (restype int)
 SIGNATURES = {
@@ -67,6 +72,14 @@ SIGNATURES = {
         _P, _P, _P, _P,                  # gC, gF, gD4, gT
         _P, _P, _P, _P,                  # color, feat, depth, misc
         _P, _P,                          # grad, stream
+    ],
+    "gslidar_gather_rows": [
+        _I, _P, _L, _I,                  # device, table, P, D
+        _P, _L, _P, _P,                  # ids, K, out, stream
+    ],
+    "gslidar_op_chain": [
+        _I, _I, _I, _I,                  # device, dtype, case, steps
+        _P, _P, _I, _P,                  # x, out, cols, stream
     ],
 }
 
@@ -121,6 +134,18 @@ def library_path() -> str:
                                    f"{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; returns [(cmd, returncode, output)]."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    results = []
+    for cmd, p in procs:
+        out, _ = p.communicate()
+        results.append((cmd, p.returncode, out))
+    return results
+
+
 def build() -> tuple[str, float]:
     """Compile the sources unless the library for them exists.
     Returns (path, seconds spent building)."""
@@ -130,15 +155,24 @@ def build() -> tuple[str, float]:
     srcs, _ = _sources()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    nvcc = _nvcc()
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        runs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                         for src, obj in zip(srcs, objs)])
+        if all(rc == 0 for _, rc, _ in runs):
+            runs += _run_all([[nvcc, *ARCH, "-shared", "-o", tmp, *objs]])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    log = "".join(f"$ {' '.join(cmd)}\n{out}" for cmd, _, out in runs)
+    if any(rc != 0 for _, rc, _ in runs):
+        raise RuntimeError(f"nvcc failed:\n{log}")
     with open(path[:-3] + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
+        f.write(log)
     os.replace(tmp, path)
     return path, seconds
 

@@ -72,7 +72,7 @@ def project_points_to_pano(points_cam: np.ndarray, intensity: np.ndarray,
     intensity panoramas: ([1, H, W], [1, H, W]) float32 numpy. Uses the
     native C++ z-buffer when it builds (native/gslidar_native.cpp), else
     the numpy lexsort below (sort by (pixel, range), keep the first)."""
-    from gslidar_tpu.native import get_native
+    from gslidar_tpu_torch.native import get_native
     nat = get_native()
     if nat is not None:
         return nat.project_pano(

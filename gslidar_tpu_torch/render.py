@@ -107,9 +107,9 @@ def save_outputs(outdir: str, split: str, results) -> None:
 
 
 def build_scene(args, shuffle: bool = False):
-    from gslidar_tpu.data.kitti360 import read_kitti360_info
-    from gslidar_tpu.data.synthetic import read_synthetic_info
+    from gslidar_tpu_torch.data.kitti360 import read_kitti360_info
     from gslidar_tpu_torch.data.scene import Scene
+    from gslidar_tpu_torch.data.synthetic import read_synthetic_info
     loaders = {"Kitti360": read_kitti360_info,
                "Synthetic": read_synthetic_info}
     if args.scene_type not in loaders:
@@ -119,7 +119,7 @@ def build_scene(args, shuffle: bool = False):
 
 
 def main(argv=None):
-    from gslidar_tpu.config import Config, load_run_config
+    from gslidar_tpu_torch.config import Config, load_run_config
     from gslidar_tpu_torch.engine.checkpoint import load_checkpoint
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])

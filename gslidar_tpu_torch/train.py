@@ -100,7 +100,7 @@ def load_args(config, base_config="configs/base.yaml", overrides=()):
     """The run's config: base_config <- config <- ``key=val`` overrides,
     merged as the root train.py merges them (t_grad off for a static
     scene)."""
-    from gslidar_tpu.config import Config, load_run_config
+    from gslidar_tpu_torch.config import Config, load_run_config
     args = load_run_config(base_config, config, list(overrides))
     if not args.dynamic:
         Config.update(args, "t_grad", False)
@@ -108,7 +108,7 @@ def load_args(config, base_config="configs/base.yaml", overrides=()):
 
 
 def main(argv=None):
-    from gslidar_tpu.utils.general import seed_everything
+    from gslidar_tpu_torch.utils.general import seed_everything
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--config", required=True)

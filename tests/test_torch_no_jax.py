@@ -1,10 +1,11 @@
-"""The port runs without JAX, and the on-card smoke test refuses to run
-without a card.
+"""The port runs without JAX and without gslidar_tpu, and the on-card
+smoke test refuses to run without a card.
 
-* no module of gslidar_tpu_torch (nor chip_smoke.py) imports jax;
+* no module of gslidar_tpu_torch (nor chip_smoke.py) imports jax or
+  gslidar_tpu;
 * the serving entry point, ``python -m gslidar_tpu_torch.render``, renders
   a gslidar_tpu checkpoint of a tiny Synthetic scene on the CPU in a
-  subprocess where ``import jax`` fails;
+  subprocess where ``import jax`` and ``import gslidar_tpu`` fail;
 * the training entry point, ``python -m gslidar_tpu_torch.train``, trains
   a tiny Synthetic scene for a few steps on the CPU the same way;
 * ``python3 chip_smoke.py`` with CUDA hidden exits non-zero with a clear
@@ -20,7 +21,11 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCK_JAX = ("import sys; sys.modules['jax'] = None; "
-             "sys.modules['jaxlib'] = None; ")
+             "sys.modules['jaxlib'] = None; "
+             "sys.modules['gslidar_tpu'] = None; ")
+NONE_LOADED = ("assert not [m for m in sys.modules if (m.startswith('jax') "
+               "or m.split('.')[0] == 'gslidar_tpu') "
+               "and sys.modules[m] is not None]; ")
 
 
 def _env(**extra):
@@ -32,13 +37,19 @@ def _env(**extra):
 
 def test_sources_import_no_jax():
     pat = re.compile(r"^\s*(import jax|from jax)", re.M)
+    pkg = re.compile(r"^\s*(from|import)\s+gslidar_tpu(\.|\s|$)", re.M)
+    assert pkg.search("from gslidar_tpu.config import Config")
+    assert pkg.search("  import gslidar_tpu as g")
+    assert not pkg.search("from gslidar_tpu_torch.config import Config")
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(os.path.join(REPO, "gslidar_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     assert len(paths) > 10
     for p in paths:
         with open(p) as f:
-            assert not pat.search(f.read()), p
+            src = f.read()
+        assert not pat.search(src), p
+        assert not pkg.search(src), p
 
 
 def _trained_model_dir(tmp_path, hw=(16, 64), frames=4):
@@ -83,8 +94,7 @@ def test_render_cli_runs_without_jax(tmp_path):
             f"sys.argv = {argv!r}; "
             "runpy.run_module('gslidar_tpu_torch.render', "
             "run_name='__main__', alter_sys=True); "
-            "assert not [m for m in sys.modules if m.startswith('jax') "
-            "and sys.modules[m] is not None]; print('NO_JAX_OK')")
+            + NONE_LOADED + "print('NO_JAX_OK')")
     r = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
@@ -111,8 +121,7 @@ def test_train_cli_runs_without_jax(tmp_path):
             f"sys.argv = {argv!r}; "
             "runpy.run_module('gslidar_tpu_torch.train', "
             "run_name='__main__', alter_sys=True); "
-            "assert not [m for m in sys.modules if m.startswith('jax') "
-            "and sys.modules[m] is not None]; print('NO_JAX_OK')")
+            + NONE_LOADED + "print('NO_JAX_OK')")
     r = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]

@@ -181,9 +181,11 @@ def test_pano_matches_jax(native, monkeypatch):
     import jax.numpy as jnp
     from gslidar_tpu import native as nat
     from gslidar_tpu.ops import pano as JP
+    from gslidar_tpu_torch import native as tnat
     from gslidar_tpu_torch.ops import pano as TP
     if not native:
         monkeypatch.setattr(nat, "get_native", lambda: None)
+        monkeypatch.setattr(tnat, "get_native", lambda: None)
     rng = np.random.default_rng(8)
     pts = rng.normal(size=(5000, 3)) * 20
     inten = rng.uniform(0, 1, 5000).astype(np.float32)
