@@ -13,8 +13,14 @@ failing phase raises:
 2. build: nvcc builds the kernel library (seconds and ptxas's report);
 3. kernel vs plain: the forward and the backward compositing kernels
    against their plain PyTorch versions on seeded scenes (a 66x1030 wrap_x
-   panorama with splats across the seam, distortion on and off; the
-   edge-on fixture), the backward with seeded random cotangents;
+   panorama with splats across the seam, distortion on and off; a 16x16
+   tile that walks 12 staging batches, with pixels whose median and 1e-4
+   floor fall after the first, which must walk >= 3; the edge-on
+   fixture), the backward with seeded random cotangents, the kernel
+   started per chunk from the forward kernel's checkpoints and the plain
+   version walking each tile from its start; the forward kernel's outputs
+   must be the same bit for bit with and without its checkpoint buffer,
+   and its checkpoints agree with the plain forward's;
 4. serving path: a seeded 1,000,000-gaussian model of kitti360_nvs_1908's
    shape (SH degree 3, 66x515 halves rendered as one 66x1030 wrap_x
    panorama) served through ``gslidar_tpu_torch.render.render_scene`` over
@@ -25,7 +31,11 @@ failing phase raises:
    distance to a tile edge);
 5. the forward kernel vs plain at full size on one of those views, timed
    with CUDA events in turns (median of 10 each after warm-up), with the
-   whole 360 render, its preprocess and its binning (median of 5);
+   whole 360 render, its preprocess and its binning (median of 5); the
+   walk per tile there (instances walked, largest and mean, the heaviest
+   tenth's share of the walked pairs) and what each compositor takes at
+   its launch (registers, shared memory, spills, resident CTAs per SM,
+   grid);
 6. training path (the main path): ``gslidar_tpu_torch.train.training`` for
    6 steps of the same seeded 1M-gaussian model on the Synthetic scene at
    kitti360_nvs_1908's shape (66x515 half panoramas, its lambdas and
@@ -36,11 +46,14 @@ failing phase raises:
    configs/synthetic_smoke.yaml for 5 steps in a subprocess (scene,
    ``create_from_pcd`` and the CLI);
 7. one full-size training step (iteration 7001, every loss schedule on,
-   densification statistics on): the backward kernel against its plain
-   version on that step's rows with seeded random cotangents; CUDA-event
+   densification statistics on): the forward kernel and its checkpoints
+   against the plain version, and the backward kernel against its plain
+   version, on that step's rows with seeded random cotangents; CUDA-event
    timings (median of 5 after warm-up) of the whole step and of its
-   stages, the backward kernel against the plain version (median of 3),
-   and the device's idle share over 3 steps from ``torch.profiler``;
+   stages (the forward kernel with and without checkpoints), the backward
+   kernel against the plain version (median of 3), and the device's idle
+   share over 3 steps from ``torch.profiler``; the walk and the
+   compositors' resources as in phase 5;
    with the least-time bounds (``gslidar_tpu_torch.microbench.bounds``)
    of the forward kernel on phase 5's 360-degree view and of both kernels
    on this training view, and their walked / needed pair ratios;
@@ -75,8 +88,16 @@ other). Flip counts and maximum errors are printed.
 Backward kernel vs plain: per gradient column, the maximum error relative
 to the column's largest magnitude must be finite and <= 1e-4, and the
 kernel's table finite everywhere. The two walk the same instances with the
-same decisions, but the plain version takes its transmittance and prefix
-sums with cumprod/cumsum and its pixel sums in another order.
+same decisions, but the kernel starts each chunk from the forward
+kernel's checkpoints, while the plain version carries T and the prefix
+sums from the tile's start with cumprod/cumsum and takes its pixel sums
+in another order.
+
+Forward checkpoints, kernel vs plain, over every staging batch both walks
+took and the pixels whose n_contrib did not flip: T at atol 1e-4; each
+running sum within 1e-4 of its field's largest magnitude. The largest T
+step between two batches of one tile must exceed the T bar, so that a
+checkpoint written to the wrong batch would fail.
 
 Gather kernel vs plain: bitwise equal (a copy). Op chains vs plain
 (``vpu_ops.check``): float32 mul, fma, select, roll1 and roll8 bit for
@@ -109,6 +130,7 @@ ATOL = 1e-4
 DEPTH_RTOL, DEPTH_ATOL = 1e-4, 1e-3
 MAX_FLIP_FRAC = 1e-3
 BWD_RTOL = 1e-4           # backward: per column, of its largest magnitude
+CKPT_RTOL = 1e-4          # checkpoint sums: per field, of its largest one
 TRAIN_STEPS = 6
 CLI_STEPS = 5
 TIMED_ITERATION = 7001    # every loss schedule on (distortion > 3000,
@@ -221,16 +243,70 @@ def compare(kern, plain, C, S):
     return ok, summary
 
 
+def compare_checkpoints(kern, plain, kern_ck, plain_ck, settings):
+    """The forward kernel's checkpoints against the plain forward's, over
+    every staging batch both walks took (the batches the backward starts
+    from), leaving out the pixels whose n_contrib flipped (as ``compare``
+    does). T at ATOL; every running sum within CKPT_RTOL of its field's
+    largest magnitude. A checkpoint of the wrong batch would be off by
+    that batch's decay: the largest T step between two batches of one
+    tile in the plain walk is printed, and must exceed the T bar wherever
+    a tile walks two batches. Returns (ok, summary dict)."""
+    import torch
+    from gslidar_tpu_torch.raster.composite_bwd import _tile, walked_per_tile
+    dev = kern_ck.state.device
+    B = settings.tile_pixels
+    walked = torch.minimum(walked_per_tile(kern, settings),
+                           walked_per_tile(plain, settings)).long()
+    n_b = (walked + B - 1) // B                       # batches per tile
+    tile_of = torch.repeat_interleave(
+        torch.arange(settings.num_tiles, device=dev), n_b)
+    c = (torch.arange(tile_of.numel(), device=dev)
+         - (torch.cumsum(n_b, 0) - n_b)[tile_of])
+    taken = kern_ck.chunk_off.long()[tile_of] + c
+    keep = _tile((kern.misc[1:2] == plain.misc[1:2]).float(),
+                 settings)[:, 0][tile_of][:, None, :] > 0
+    k, p = kern_ck.state[taken], plain_ck.state[taken]
+    d = torch.where(keep, (k - p).abs(), 0.0).amax((0, 2))    # per field
+    T_err = float(d[0])
+    sum_rel = float((d[1:] / (p[:, 1:].abs().amax((0, 2))
+                              .clamp_min(1e-30))).max())
+    nxt = c[1:] == c[:-1] + 1                         # same tile, next batch
+    gap = (float((p[1:, 0] - p[:-1, 0])[nxt].abs().max())
+           if bool(nxt.any()) else None)
+    ok = (bool(torch.isfinite(k).all()) and T_err <= ATOL
+          and sum_rel <= CKPT_RTOL and (gap is None or gap > ATOL)
+          and torch.equal(kern_ck.chunk_off, plain_ck.chunk_off))
+    return ok, dict(batches=int(taken.numel()),
+                    T_max_abs_err=float(f"{T_err:.3g}"),
+                    sums_max_rel_err=float(f"{sum_rel:.3g}"),
+                    next_batch_T_step=(None if gap is None
+                                       else float(f"{gap:.3g}")))
+
+
 def run_pair(rows, tile_starts, params, settings, C, S):
-    """Forward kernel vs plain: (ok, summary, the kernel's CompositeOut)."""
+    """Forward kernel vs plain: (ok, summary, the kernel's CompositeOut,
+    its checkpoints). The kernel runs with and without the checkpoint
+    buffer, whose outputs must be the same bit for bit; the plain version
+    fills a buffer of its own, which the kernel's must agree with
+    (``compare_checkpoints``)."""
     import torch
     from gslidar_tpu_torch.raster.composite_fwd import (
-        composite_forward, composite_forward_reference)
-    kern = composite_forward(rows, tile_starts, params, settings, C, S)
+        composite_forward, composite_forward_reference, new_checkpoints)
+    ckpt = new_checkpoints(tile_starts, rows.shape[0], settings, C)
+    plain_ck = new_checkpoints(tile_starts, rows.shape[0], settings, C)
+    kern = composite_forward(rows, tile_starts, params, settings, C, S, ckpt)
+    bare = composite_forward(rows, tile_starts, params, settings, C, S)
     plain = composite_forward_reference(rows, tile_starts, params, settings,
-                                        C, S)
+                                        C, S, plain_ck)
     torch.cuda.synchronize()
-    return (*compare(kern, plain, C, S), kern)
+    ok, summ = compare(kern, plain, C, S)
+    same = all(torch.equal(a, b) for a, b in zip(kern, bare))
+    summ["checkpoints_leave_outputs_bitwise_equal"] = same
+    ck_ok, summ["checkpoints_vs_plain"] = compare_checkpoints(
+        kern, plain, ckpt, plain_ck, settings)
+    del plain_ck
+    return ok and same and ck_ok, summ, kern, ckpt
 
 
 def random_cotangents(settings, C, S, seed, device):
@@ -244,17 +320,21 @@ def random_cotangents(settings, C, S, seed, device):
             for s in ((C, H, W), (S + 3, H, W), (4, H, W), (1, H, W))]
 
 
-def run_bwd_pair(rows, tile_starts, fwd, cts, params, settings, C, S):
+def run_bwd_pair(rows, tile_starts, fwd, cts, params, settings, C, S,
+                 ckpt):
     """Backward kernel vs plain on the same inputs: (ok, summary). The
+    kernel starts each chunk from the forward kernel's checkpoints
+    ``ckpt``; the plain version walks each tile from its start, carrying T
+    and the prefix from batch to batch, so it does not lean on them. The
     kernel runs twice: its table must repeat bit for bit."""
     import torch
     from gslidar_tpu_torch.raster.composite_bwd import (
         composite_backward, composite_backward_reference)
     with torch.no_grad():
         kern = composite_backward(rows, tile_starts, fwd, cts, params,
-                                  settings, C, S)
+                                  settings, C, S, ckpt)
         again = composite_backward(rows, tile_starts, fwd, cts, params,
-                                   settings, C, S)
+                                   settings, C, S, ckpt)
         plain = composite_backward_reference(rows, tile_starts, fwd, cts,
                                              params, settings, C, S)
     torch.cuda.synchronize()
@@ -309,6 +389,45 @@ def edge_on_rows(device):
     return rows.to(device).contiguous()
 
 
+def deep_tile(device):
+    """``gslidar_tpu_torch.raster.scenes.deep_tile_scene``: one 16x16 tile
+    walks 12 staging batches, with pixels whose median (T = 0.5) and 1e-4
+    floor fall after the first. Both kernels against their plain versions
+    there: ((ok, summary), (ok, summary))."""
+    import numpy as np
+    import torch
+    from gslidar_tpu_torch.raster import scenes
+    from gslidar_tpu_torch.raster.composite_fwd import make_params
+    from gslidar_tpu_torch.raster.settings import RasterSettings
+    s = RasterSettings(height=30, width=130, vfov=(-20.0, 20.0),
+                       hfov=(-60.0, 60.0), num_extra_features=2)
+    sc = {k: torch.as_tensor(v, device=device) for k, v in
+          scenes.deep_tile_scene(np.random.default_rng(7)).items()}
+    rows, starts = scenes.port_rows(sc, s)
+    params = make_params(1.0, s)
+    ok, summ, fwd, ckpt = run_pair(rows, starts, params, s, 4, 2)
+    walked = fwd.misc[5, ::s.tile_h, ::s.tile_w].reshape(-1).long()
+    chunks = ((walked + s.tile_pixels - 1) // s.tile_pixels).tolist()
+    t = max(range(len(chunks)), key=chunks.__getitem__)
+    ty, tx = divmod(t, s.tiles_x)
+    px = (slice(ty * s.tile_h, (ty + 1) * s.tile_h),
+          slice(tx * s.tile_w, (tx + 1) * s.tile_w))
+    T, n_contrib, med_pos = (fwd.misc[i][px] for i in range(3))
+    late = dict(median=int((med_pos > s.tile_pixels).sum()),
+                floor=int(((T < 1e-4) & (n_contrib > s.tile_pixels)).sum()))
+    say(3, f"deep tile: staging batches walked per tile {chunks} (max "
+           f"{chunks[t]}, bar 3); in tile {t}, pixels whose median falls "
+           f"after its first batch {late['median']}, whose 1e-4 floor does "
+           f"{late['floor']}")
+    if chunks[t] < 3 or not all(late.values()):
+        raise RuntimeError("the deep-tile scene does not walk past its "
+                           "first batch")
+    summ["instances"] = rows.shape[0]
+    return (ok, summ), run_bwd_pair(
+        rows, starts, fwd, random_cotangents(s, 4, 2, SEED + 8, device),
+        params, s, 4, 2, ckpt)
+
+
 def phase_kernel_vs_plain(device):
     import dataclasses
     import torch
@@ -335,24 +454,27 @@ def phase_kernel_vs_plain(device):
                           prep.tiles_touched, 1.0, s,
                           payload=pack_payload(prep, sc["opac"], sc["feats"]))
         rows, params = b.data_rows.contiguous(), make_params(1.0, s)
-        ok, summ, fwd = run_pair(rows, b.tile_starts, params, s, 4, 4)
+        ok, summ, fwd, ckpt = run_pair(rows, b.tile_starts, params, s, 4, 4)
         summ["instances"] = b.num_pairs
         name = f"seam_distortion_{'on' if dist else 'off'}"
         results[name] = (ok, summ)
         bwd[name] = run_bwd_pair(rows, b.tile_starts, fwd,
                                  random_cotangents(s, 4, 4, SEED + 5 + dist,
-                                                   device), params, s, 4, 4)
+                                                   device), params, s, 4, 4,
+                                 ckpt)
+    results["deep_tile"], bwd["deep_tile"] = deep_tile(device)
 
     es = RasterSettings(height=48, width=96, vfov=(-20.0, 20.0),
                         hfov=(-60.0, 60.0), tile_h=8, tile_w=128)
     starts = torch.zeros(es.num_tiles + 1, dtype=torch.int32, device=device)
     starts[1:] = 2
     rows, params = edge_on_rows(device), make_params(1.0, es)
-    ok, summ, fwd = run_pair(rows, starts, params, es, 4, 0)
+    ok, summ, fwd, ckpt = run_pair(rows, starts, params, es, 4, 0)
     results["edge_on"] = (ok, summ)
     bwd["edge_on"] = run_bwd_pair(rows, starts, fwd,
                                   random_cotangents(es, 4, 0, SEED + 7,
-                                                    device), params, es, 4, 0)
+                                                    device), params, es, 4, 0,
+                                  ckpt)
     for kind, res in (("forward", results), ("backward", bwd)):
         for name, (ok, summ) in res.items():
             say(3, f"{kind} kernel vs plain {name}: "
@@ -584,9 +706,12 @@ def phase_full_size(args, params, alive, prior, cam, smi):
         b = binning()
         rows, starts = b.data_rows.contiguous(), b.tile_starts
         params8 = make_params(sf, s)
-        ok, summ, kout = run_pair(rows, starts, params8, s, 4, 4)
+        ok, summ, kout, _ = run_pair(rows, starts, params8, s, 4, 4)
         work = composite_work(kout, s, rows.shape[0], 4, 4)
         del kout
+        say_walk(5, "the 360-degree view (the forward without "
+                    "checkpoints, as serving runs it)", work, s,
+                 rows.shape[0], 4, 4, False)
         say(5, f"kernel vs plain at full size ({b.num_pairs} instances, "
                f"{s.height}x{s.width}): {'ok' if ok else 'FAIL'} "
                f"{json.dumps(summ)}")
@@ -804,11 +929,20 @@ def phase_train_step(args, scene, init_params, device, smi):
         _, _, _, grads = step(state, batch, it, SH_DEGREE, 0.0, True)
     finally:
         co.bin_gaussians, co.composite_backward = bin_orig, bwd_orig
-    rows, starts, fwd, _, params8, s, C, S = captured["bwd"]
+    rows, starts, fwd, _, params8, s, C, S, ckpt = captured["bwd"]
     gid = captured["binning"].gid_sorted
     works = {"forward": composite_work(fwd, s, rows.shape[0], C, S),
              "backward": composite_work(fwd, s, rows.shape[0], C, S,
                                         backward=True)}
+    say_walk(7, "the training view (the forward with checkpoints)",
+             works["backward"], s, rows.shape[0], C, S, True)
+    ok, summ, _, _ = run_pair(rows, starts, params8, s, C, S)
+    say(7, f"forward kernel vs plain at full size ({rows.shape[0]} "
+           f"instances, {s.height}x{s.width}): {'ok' if ok else 'FAIL'} "
+           f"{json.dumps(summ)}")
+    if not ok:
+        raise RuntimeError("the forward kernel or its checkpoints disagree "
+                           "with the plain version on the training view")
     with torch.no_grad():
         table = composite_backward(*captured["bwd"])
         red = [rows.new_zeros(n, rows.shape[1]).index_add_(0, gid, table)
@@ -818,7 +952,7 @@ def phase_train_step(args, scene, init_params, device, smi):
            f"entries differ, max {float((red[0] - red[1]).abs().max()):.3g}")
     ok, summ = run_bwd_pair(rows, starts, fwd,
                             random_cotangents(s, C, S, SEED + 9, device),
-                            params8, s, C, S)
+                            params8, s, C, S, ckpt)
     say(7, f"backward kernel vs plain at full size ({rows.shape[0]} "
            f"instances, {s.height}x{s.width}): {'ok' if ok else 'FAIL'} "
            f"{json.dumps(summ)}")
@@ -854,6 +988,8 @@ def phase_train_step(args, scene, init_params, device, smi):
         "render": fwd_render,
         "forward kernel": lambda: composite_forward(rows, starts, params8, s,
                                                     C, S),
+        "forward kernel with checkpoints": lambda: composite_forward(
+            rows, starts, params8, s, C, S, ckpt),
         "losses": losses,
         "backward": lambda: torch.autograd.grad(
             loss, [*leaves.values(), prior, tap], retain_graph=True,
@@ -899,6 +1035,33 @@ def phase_train_step(args, scene, init_params, device, smi):
 
 
 # ------------------------------------------------------- compositor bounds
+def say_walk(phase, label, work, settings, n_rows, C, S, checkpoints):
+    """The walk per tile on one view, and what each compositor takes at
+    its launch there: registers, shared memory, spills, resident CTAs per
+    SM, and its grid (the forward's instance with ``checkpoints`` or
+    without)."""
+    from gslidar_tpu_torch.kernels import kernel_resources
+    from gslidar_tpu_torch.raster.composite_fwd import max_chunks
+    res = {k: kernel_resources(k, settings.tile_h, settings.tile_w, C, S,
+                               checkpoints)
+           for k in ("composite_fwd", "composite_bwd")}
+    grid = {"composite_fwd": settings.num_tiles,
+            "composite_bwd": max_chunks(n_rows, settings)}
+    say(phase, f"walk on {label}: instances walked per tile max "
+               f"{work.tile_walked_max}, mean {work.tile_walked_mean:.1f}; "
+               f"the heaviest tenth of the {settings.num_tiles} tiles holds "
+               f"{work.heavy_tenth_share:.3f} of the walked pairs; "
+               f"{work.walked_chunks} staging batches walked | "
+               + "; ".join(f"{k}: grid {grid[k]} CTAs of "
+                           f"{settings.tile_pixels} threads, "
+                           f"{r['registers']} registers/thread, static smem "
+                           f"{r['static_smem']} B, dynamic smem "
+                           f"{r['dynamic_smem']} B, local {r['local_bytes']} "
+                           f"B/thread, {r['ctas_per_sm']} resident CTAs/SM"
+                           for k, r in res.items()))
+    return res
+
+
 def say_bounds(phase, label, work, clock_hz, ms):
     b = work.bound(clock_hz)
     say(phase, f"bound of the {label}: {b.ms:.4f} ms, set by {b.by} "

@@ -31,6 +31,18 @@ enum Field {
   F_BLEND                 // then C colors and S features
 };
 
+// The forward's checkpoint of one staging batch: each tile pixel's running
+// state before the batch, [CKPT_BASE + C][tile pixels] floats. Fields: T,
+// the C color sums, then, counted from the end of the colors, the three
+// normal sums, sum w*d, sum w*d^2, sum w, M1 and M2. The S features are
+// left out: they do not feed back into alpha. A tile's batches follow one
+// another from chunk_off[tile], the exclusive prefix sum over the tiles of
+// ceil(instances / tile pixels).
+constexpr int CKPT_BASE = 9;
+enum CkptHead { CK_T = 0, CK_COLOR = 1 };
+enum CkptTail { CK_N1 = 1, CK_N2, CK_N3, CK_DSUM, CK_D2SUM, CK_WSUM, CK_M1,
+                CK_M2 };
+
 struct Params {
   float near, far, vmin, vmax, hmin, hmax, wrap_w, wrap_inv;
 };
@@ -157,6 +169,27 @@ __device__ __forceinline__ Hit intersect(const float* s, int B,
   h.alpha = h.a_raw > MAX_ALPHA ? MAX_ALPHA : h.a_raw;
   h.ok = p3ok && h.d >= prm.near && h.d <= prm.far && h.alpha >= ALPHA_EPS;
   return h;
+}
+
+// What `kernel` takes at a launch of `threads` threads with `smem` bytes of
+// dynamic shared memory: out[0] registers per thread, out[1] static shared
+// memory (bytes), out[2] local memory per thread (bytes; spills), out[3]
+// dynamic shared memory (bytes), out[4] resident CTAs per SM.
+template <typename Kernel>
+cudaError_t launch_resources(Kernel kernel, int threads, size_t smem,
+                             int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return err;
+  int ctas = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, threads,
+                                                      smem);
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = (int)a.localSizeBytes;
+  out[3] = (int)smem;
+  out[4] = ctas;
+  return err;
 }
 
 }  // namespace gslidar

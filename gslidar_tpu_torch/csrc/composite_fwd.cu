@@ -22,7 +22,19 @@
 // __syncthreads_count vote ends the walk once no pixel of the tile has
 // T >= 1e-4. None of the TPU layout is carried over (prefix products by
 // sublane rolls, MXU channel sums, SMEM saturation flags, bf16 payload
-// words, the polynomial atan2).
+// words, the polynomial atan2). The serial walk per tile is also what
+// bounds this kernel's time in practice (the heaviest tile of a 360-degree
+// view of 1M gaussians walks 67,297 instances against a mean of 4,060);
+// that is left to a later redesign.
+//
+// For training, the caller may pass a checkpoint buffer: at the start of
+// every staging batch, before the vote, each thread stores its pixel's
+// running state (composite_common.cuh: T, the color sums, the normal and
+// depth sums, sum w, M1, M2), 9 + C coalesced floats per pixel and batch.
+// The backward kernel starts each of its chunks there. The stores change
+// no arithmetic, so the outputs are the same bit for bit with and without
+// them; they are a template parameter, so with no buffer (serving) the
+// launch takes an instance that has neither the stores nor their branch.
 //
 // Semantics kept from the Pallas kernel:
 //   * T decays for every `ok` instance, including those the 1e-4 floor
@@ -58,13 +70,17 @@ namespace {
 using namespace gslidar;
 
 // MAX_THREADS bounds the tile's pixel count: 256 (16x16 tiles) lets the
-// compiler keep every accumulator in registers; 1024 caps it at 64.
-template <int MAX_THREADS>
+// compiler keep every accumulator in registers; 1024 caps it at 64. CKPT
+// instances store the checkpoints (training); the others (serving) carry
+// neither the stores nor their branch.
+template <int MAX_THREADS, bool CKPT>
 __global__ void __launch_bounds__(MAX_THREADS)
 composite_fwd_kernel(const float* __restrict__ rows, int D,
                      const int* __restrict__ tile_starts, int tiles_x,
                      int tile_h, int tile_w, int H, int W, int C, int S,
                      Params prm, int compute_distortion, int compute_contrib,
+                     const int* __restrict__ chunk_off,
+                     float* __restrict__ ckpt,
                      float* __restrict__ color, float* __restrict__ feat,
                      float* __restrict__ depth, float* __restrict__ misc) {
   extern __shared__ float smem[];
@@ -98,6 +114,24 @@ composite_fwd_kernel(const float* __restrict__ rows, int D,
   int walked = 0;
 
   for (int base = start; base < end; base += B) {
+    if (CKPT) {                          // the state before this batch
+      // this pixel's column of the batch's checkpoint, [9 + C][B]
+      const int batch = __ldg(chunk_off + tile) + (base - start) / B;
+      float* ck = ckpt + (size_t)batch * (CKPT_BASE + C) * B + tid;
+      ck[CK_T * B] = T;
+#pragma unroll
+      for (int c = 0; c < MAX_BLEND; ++c)
+        if (c < C) ck[(CK_COLOR + c) * B] = acc[c];
+      float* cn = ck + C * B;            // the fields after the C colors
+      cn[CK_N1 * B] = an1;
+      cn[CK_N2 * B] = an2;
+      cn[CK_N3 * B] = an3;
+      cn[CK_DSUM * B] = dsum;
+      cn[CK_D2SUM * B] = d2sum;
+      cn[CK_WSUM * B] = wsum;
+      cn[CK_M1 * B] = M1;
+      cn[CK_M2 * B] = M2;
+    }
     // block-wide vote (also the barrier before the staging area is
     // overwritten): stop once no pixel of the tile can take a contribution
     if (__syncthreads_count(T >= T_STOP) == 0) break;
@@ -172,37 +206,75 @@ composite_fwd_kernel(const float* __restrict__ rows, int D,
   misc[7 * HW + o] = 0.0f;
 }
 
+// The kernel instance for a tile of `threads` pixels, with or without the
+// checkpoint stores, its dynamic shared memory, and the attribute that lets
+// it take more than 48 KB.
+struct Launch {
+  decltype(&composite_fwd_kernel<256, false>) kernel;
+  size_t smem;
+};
+
+cudaError_t prepare(int threads, int C, int S, bool ckpt, Launch& l) {
+  if (threads <= 256)
+    l.kernel = ckpt ? composite_fwd_kernel<256, true>
+                    : composite_fwd_kernel<256, false>;
+  else
+    l.kernel = ckpt ? composite_fwd_kernel<1024, true>
+                    : composite_fwd_kernel<1024, false>;
+  l.smem = (size_t)(F_BLEND + C + S) * threads * sizeof(float);
+  if (l.smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(l.kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)l.smem);
+}
+
 }  // namespace
+
+// The resources of the instance a launch for tiles of tile_h x tile_w
+// pixels takes, with checkpoints when `ckpt` is non-zero (launch_resources,
+// composite_common.cuh). Returns a cudaError_t as an int.
+extern "C" int gslidar_composite_fwd_info(int device, int tile_h, int tile_w,
+                                          int C, int S, int ckpt, int* out) {
+  const int threads = tile_h * tile_w;
+  if (C < 0 || S < 0 || C + S > MAX_BLEND || threads > 1024 || threads <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  Launch l;
+  if ((err = prepare(threads, C, S, ckpt != 0, l)) != cudaSuccess)
+    return (int)err;
+  return (int)launch_resources(l.kernel, threads, l.smem, out);
+}
 
 // Launches the kernel on `stream` and returns cudaGetLastError() as an
 // int (0 = cudaSuccess). All pointers are device pointers; outputs are
 // [C,H,W], [S+3,H,W], [4,H,W] and [8,H,W] float32, rows is [N, D] float32
 // row-major with D = 10 + C + S, tile_starts is [n_tiles + 1] int32.
+// ckpt, when not null, receives the checkpoint of every staging batch the
+// walk reaches (composite_common.cuh), at the batches chunk_off
+// ([n_tiles + 1] int32) gives each tile; a null ckpt launches the instance
+// without the stores.
 extern "C" int gslidar_composite_fwd(
     int device, const float* rows, int D, const int* tile_starts,
     int n_tiles, int tiles_x, int tile_h, int tile_w, int H, int W, int C,
     int S, float near, float far, float vmin, float vmax, float hmin,
     float hmax, float wrap_w, float wrap_inv, int compute_distortion,
-    int compute_contrib, float* color, float* feat, float* depth,
-    float* misc, void* stream) {
+    int compute_contrib, const int* chunk_off, float* ckpt, float* color,
+    float* feat, float* depth, float* misc, void* stream) {
   if (C < 0 || S < 0 || C + S > MAX_BLEND || D != 10 + C + S ||
-      tile_h * tile_w > 1024 || n_tiles <= 0)
+      tile_h * tile_w > 1024 || n_tiles <= 0 ||
+      (ckpt != nullptr && chunk_off == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int threads = tile_h * tile_w;
-  const size_t smem = (size_t)(F_BLEND + C + S) * threads * sizeof(float);
-  auto kernel = threads <= 256 ? composite_fwd_kernel<256>
-                               : composite_fwd_kernel<1024>;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  Launch l;
+  if ((err = prepare(threads, C, S, ckpt != nullptr, l)) != cudaSuccess)
+    return (int)err;
   const Params prm{near, far, vmin, vmax, hmin, hmax, wrap_w, wrap_inv};
-  kernel<<<n_tiles, threads, smem, (cudaStream_t)stream>>>(
+  l.kernel<<<n_tiles, threads, l.smem, (cudaStream_t)stream>>>(
       rows, D, tile_starts, tiles_x, tile_h, tile_w, H, W, C, S, prm,
-      compute_distortion, compute_contrib, color, feat, depth, misc);
+      compute_distortion, compute_contrib, chunk_off, ckpt, color, feat,
+      depth, misc);
   return (int)cudaGetLastError();
 }

@@ -58,12 +58,14 @@ SIGNATURES = {
         _F, _F, _F, _F, _F, _F, _F, _F,  # near, far, vmin, vmax, hmin,
                                          # hmax, wrap_w, wrap_inv
         _I, _I,                          # compute_distortion, contrib
+        _P, _P,                          # chunk_off, ckpt (or null)
         _P, _P, _P, _P,                  # color, feat, depth, misc
         _P,                              # stream
     ],
     "gslidar_composite_bwd": [
         _I, _P, _I, _P, _P,              # device, rows, D, tile_starts,
                                          # walked
+        _P, _P, _I,                      # chunk_off, ckpt, grid
         _I, _I, _I, _I, _I, _I, _I, _I,  # n_tiles, tiles_x, tile_h, tile_w,
                                          # H, W, C, S
         _F, _F, _F, _F, _F, _F, _F, _F,  # near, far, vmin, vmax, hmin,
@@ -72,6 +74,13 @@ SIGNATURES = {
         _P, _P, _P, _P,                  # gC, gF, gD4, gT
         _P, _P, _P, _P,                  # color, feat, depth, misc
         _P, _P,                          # grad, stream
+    ],
+    "gslidar_composite_fwd_info": [
+        _I, _I, _I, _I, _I, _I, _P,      # device, tile_h, tile_w, C, S,
+                                         # checkpoints, out
+    ],
+    "gslidar_composite_bwd_info": [
+        _I, _I, _I, _I, _I, _P,          # device, tile_h, tile_w, C, S, out
     ],
     "gslidar_gather_rows": [
         _I, _P, _L, _I,                  # device, table, P, D
@@ -185,3 +194,29 @@ def load_library() -> KernelLibrary:
             path, seconds = build()
             _loaded = KernelLibrary(path, seconds)
         return _loaded
+
+
+RESOURCE_FIELDS = ("registers", "static_smem", "local_bytes",
+                   "dynamic_smem", "ctas_per_sm")
+
+
+def kernel_resources(kernel: str, tile_h: int, tile_w: int, C: int, S: int,
+                     checkpoints: bool = False, device: int = 0) -> dict:
+    """What compositor ``kernel`` ("composite_fwd" or "composite_bwd")
+    takes at a launch for tile_h x tile_w tiles: registers per thread,
+    static shared memory and local (spill) bytes per thread
+    (``cudaFuncGetAttributes``), the launch's dynamic shared memory, and
+    the CTAs resident per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).
+    For the forward, ``checkpoints`` picks the instance that stores them
+    (training) over the one that does not (serving)."""
+    lib = load_library()
+    out = (ctypes.c_int * len(RESOURCE_FIELDS))()
+    if kernel == "composite_fwd":
+        err = lib.gslidar_composite_fwd_info(device, tile_h, tile_w, C, S,
+                                             int(checkpoints), out)
+    else:
+        err = lib.gslidar_composite_bwd_info(device, tile_h, tile_w, C, S,
+                                             out)
+    if err != 0:
+        raise RuntimeError(f"{kernel} resource query failed: CUDA error {err}")
+    return dict(zip(RESOURCE_FIELDS, out))

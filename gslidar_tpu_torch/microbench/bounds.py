@@ -162,6 +162,13 @@ class CompositeWork(NamedTuple):
     n_bytes: int
     fp32: int
     mufu: int
+    # the walk per tile: instances walked, the largest and the mean, the
+    # share of the walked pairs in the heaviest tenth of the tiles, and
+    # the staging batches (tile-pixel chunks) walked, summed over tiles
+    tile_walked_max: int = 0
+    tile_walked_mean: float = 0.0
+    heavy_tenth_share: float = 0.0
+    walked_chunks: int = 0
 
     @property
     def walked_over_needed(self) -> float:
@@ -193,7 +200,12 @@ def composite_work(fwd, settings, n_rows: int, C: int, S: int,
                     settings)
     walked = fwd.misc[5, ::settings.tile_h, ::settings.tile_w].reshape(-1)
     needed_pairs = int(n_contrib.sum())
-    walked_pairs = int((walked.to(torch.float64) * inside.sum(1)).sum())
+    tile_pairs = walked.to(torch.float64) * inside.sum(1)
+    walked_pairs = int(tile_pairs.sum())
+    heavy = tile_pairs.sort(descending=True).values[
+        :-(-tile_pairs.numel() // 10)]
+    pix = settings.tile_h * settings.tile_w
+    walked_i = walked.to(torch.int64)
     needed_inst = int(n_contrib.amax(1).sum())
     accepting = int((n_contrib > 0).sum())
     pixels = settings.height * settings.width
@@ -227,4 +239,10 @@ def composite_work(fwd, settings, n_rows: int, C: int, S: int,
                          walked_pairs=walked_pairs,
                          needed_instances=needed_inst,
                          accepting_pixels=accepting, pixels=pixels,
-                         n_bytes=n_bytes, fp32=fp32, mufu=mufu)
+                         n_bytes=n_bytes, fp32=fp32, mufu=mufu,
+                         tile_walked_max=int(walked_i.max()),
+                         tile_walked_mean=float(walked_i.double().mean()),
+                         heavy_tenth_share=float(heavy.sum())
+                         / max(walked_pairs, 1),
+                         walked_chunks=int(((walked_i + pix - 1)
+                                            // pix).sum()))

@@ -16,6 +16,10 @@ every transmittance, ``ok`` and ``accept`` decision is the forward's.
 Every back-to-front suffix sum is a total minus an inclusive prefix
 (pallas_bwd.py:219-263): with cotangents constant per pixel they collapse
 into one prefix P of w*q against qtot, built from the forward's totals.
+The kernel walks each staging batch of each tile (a chunk) on its own,
+started from the forward's checkpoint of that batch
+(``composite_fwd.Checkpoints``): T as the forward had it, and P formed
+from the checkpoint's running sums and the pixel's cotangents.
 Each instance's row is a sum over its tile's pixels of 26 terms — the
 bilinear basis of the T gradient (the linear ray-splat form), the
 low-pass centre terms, the depth, opacity and channel terms — which are
@@ -32,16 +36,20 @@ geometry, and the median depth cotangent reaches the median instance.
 version, CUDA tensors to the kernel in ``csrc/composite_bwd.cu``, anything
 else raises. ``composite_backward_reference`` is the plain version; it
 walks the same per-tile batches as ``composite_forward_reference``,
-vectorized over tiles x instances x pixels.
+vectorized over tiles x instances x pixels, each batch started from its
+checkpoint as the kernel does, or, without checkpoints, carried over from
+the batch before.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gslidar_tpu_torch.raster.composite_fwd import (CompositeOut,
+from gslidar_tpu_torch.raster.composite_fwd import (Checkpoints,
+                                                    CompositeOut,
+                                                    _check_checkpoints,
                                                     _check_inputs,
-                                                    intersect,
+                                                    intersect, max_chunks,
                                                     stage_instances,
                                                     tile_grid)
 from gslidar_tpu_torch.raster.settings import (FILTER_INV_SQUARE, MAX_ALPHA,
@@ -76,8 +84,11 @@ def _cross(a, b):
 
 def composite_backward_reference(rows, tile_starts, fwd: CompositeOut, cts,
                                  params, settings: RasterSettings, C: int,
-                                 S: int) -> torch.Tensor:
-    """Plain PyTorch version of the backward compositing kernel."""
+                                 S: int, ckpt: Checkpoints | None = None
+                                 ) -> torch.Tensor:
+    """Plain PyTorch version of the backward compositing kernel. With
+    ``ckpt`` each batch starts from its checkpoint, as the kernel's chunks
+    do; without, from the batch before."""
     gC, gF, gD4, gT = cts
     dev = rows.device
     f32 = torch.float32
@@ -125,6 +136,21 @@ def composite_backward_reference(rows, tile_starts, fwd: CompositeOut, cts,
 
     for c in range(n_batches):
         idx = torch.nonzero(walked > c * B)[:, 0]
+        if ckpt is not None:
+            st = ckpt.state[ckpt.chunk_off[idx].to(torch.int64) + c]
+            T_run[idx] = st[:, 0]
+            P0 = torch.zeros_like(st[:, 0])
+            for ch in range(C):
+                P0 = P0 + tgC[idx, ch] * st[:, 1 + ch]
+            for ch in range(3):
+                P0 = P0 + gN[idx, ch] * st[:, 1 + C + ch]
+            P0 = P0 + gD[idx] * st[:, 4 + C]
+            P0 = P0 + gD2[idx] * st[:, 5 + C]
+            if settings.compute_distortion:
+                P0 = P0 + gDist[idx] * (M2t[idx] * st[:, 6 + C]
+                                        + A_fin[idx] * st[:, 8 + C]
+                                        - 2.0 * M1t[idx] * st[:, 7 + C])
+            P_run[idx] = P0
         pos = starts[idx, None] + c * B + k[None, :]             # [t, B]
         in_rng = pos < (starts + walked)[idx, None]
         d_ = rows[torch.clamp(pos, max=max(N - 1, 0))]
@@ -272,33 +298,44 @@ def _check_cts(cts, fwd: CompositeOut, settings: RasterSettings, C, S, dev):
     if C + S > MAX_BLEND_BWD:
         raise ValueError(f"C + S = {C + S} exceeds the backward kernel's "
                          f"{MAX_BLEND_BWD}")
-    if settings.tile_pixels % 32:
-        raise ValueError("the backward kernel needs tiles of a multiple of "
-                         "32 pixels")
+    pix = settings.tile_pixels
+    if pix % 32 or (pix > 256 and pix not in (512, 1024)):
+        raise ValueError(f"the backward kernel takes tiles of a multiple of "
+                         f"32 pixels up to 256, or of 512 or 1024, not "
+                         f"{pix}")
 
 
 def composite_backward(rows: torch.Tensor, tile_starts: torch.Tensor,
                        fwd: CompositeOut, cts, params,
-                       settings: RasterSettings, C: int,
-                       S: int) -> torch.Tensor:
+                       settings: RasterSettings, C: int, S: int,
+                       ckpt: Checkpoints | None = None) -> torch.Tensor:
     """Per-instance gradient table [N, D] of the forward composite.
 
-    ``cts`` is (gC, gF, gD4, gT). CPU tensors run the plain version; CUDA
-    tensors launch the kernel on the current stream
-    (``composite_backward.launches`` counts those launches); any other
-    device raises.
+    ``cts`` is (gC, gF, gD4, gT); ``ckpt`` the checkpoints the forward
+    wrote (``composite_forward(..., ckpt=new_checkpoints(...))``), which
+    the kernel needs. CPU tensors run the plain version; CUDA tensors
+    launch the kernel on the current stream (``composite_backward.launches``
+    counts those launches); any other device raises.
     """
     _check_inputs(rows, tile_starts, settings, C, S)
     _check_cts(cts, fwd, settings, C, S, rows.device)
+    if ckpt is not None:
+        _check_checkpoints(ckpt, rows, settings, C)
     if rows.device.type == "cpu":
         return composite_backward_reference(rows, tile_starts, fwd, cts,
-                                            params, settings, C, S)
+                                            params, settings, C, S, ckpt)
     if rows.device.type != "cuda":
         raise ValueError(f"composite_backward runs on cpu or cuda tensors, "
                          f"not {rows.device}")
+    if ckpt is None:
+        raise ValueError("the backward kernel starts every chunk from the "
+                         "forward's checkpoints: pass the Checkpoints that "
+                         "composite_forward filled")
     from gslidar_tpu_torch.kernels import load_library
     lib = load_library()
-    grad = torch.empty_like(rows)
+    grad = torch.zeros_like(rows)       # rows no chunk reaches stay zero
+    # one CTA per possible (tile, staging batch), sized on the host with no
+    # sync; those past the batches the forward walked return at once
     walked = walked_per_tile(fwd, settings)
     gC, gF, gD4, gT = cts
     dev = rows.device.index if rows.device.index is not None \
@@ -307,13 +344,14 @@ def composite_backward(rows: torch.Tensor, tile_starts: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gslidar_composite_bwd(
             dev, rows.data_ptr(), rows.shape[1], tile_starts.data_ptr(),
-            walked.data_ptr(), settings.num_tiles, settings.tiles_x,
-            settings.tile_h, settings.tile_w, settings.height,
-            settings.width, C, S, *params, int(settings.compute_distortion),
-            gC.data_ptr(), gF.data_ptr(), gD4.data_ptr(), gT.data_ptr(),
-            fwd.color.data_ptr(), fwd.feature.data_ptr(),
-            fwd.depth.data_ptr(), fwd.misc.data_ptr(), grad.data_ptr(),
-            stream)
+            walked.data_ptr(), ckpt.chunk_off.data_ptr(),
+            ckpt.state.data_ptr(), max_chunks(rows.shape[0], settings),
+            settings.num_tiles, settings.tiles_x, settings.tile_h,
+            settings.tile_w, settings.height, settings.width, C, S, *params,
+            int(settings.compute_distortion), gC.data_ptr(), gF.data_ptr(),
+            gD4.data_ptr(), gT.data_ptr(), fwd.color.data_ptr(),
+            fwd.feature.data_ptr(), fwd.depth.data_ptr(),
+            fwd.misc.data_ptr(), grad.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"composite_bwd kernel launch failed: CUDA error "
                            f"{err}")

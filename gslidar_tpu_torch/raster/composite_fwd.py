@@ -32,6 +32,7 @@ from gslidar_tpu_torch.raster.settings import (ALPHA_EPS, FAR_N,
 
 PAYLOAD_BASE = 10    # 9 T columns + opacity, then C colors and S features
 MAX_BLEND = 16       # C + S the kernel accumulates (csrc MAX_BLEND)
+CKPT_BASE = 9        # checkpoint fields besides the C colors (csrc CKPT_BASE)
 
 
 class CompositeOut(NamedTuple):
@@ -41,6 +42,49 @@ class CompositeOut(NamedTuple):
                             # sum w*d^2
     misc: torch.Tensor      # [8, H, W] final T, n_contrib, median position,
                             # M1, M2, instances walked, sum w, 0
+
+
+class Checkpoints(NamedTuple):
+    """Each tile pixel's running state at the start of every staging batch
+    the forward reaches (composite_common.cuh), where the backward kernel
+    starts its chunks.
+
+    ``state`` [chunks, 9 + C, tile pixels] float32: T, the C color sums,
+    the three normal sums, sum w*d, sum w*d^2, sum w, M1, M2 (the S
+    features do not feed back into alpha). Tile t's batches follow one
+    another from ``chunk_off[t]`` ([n_tiles + 1] int32, the exclusive
+    prefix sum of ceil(instances / tile pixels)). Batches the walk never
+    reaches are not written."""
+    state: torch.Tensor
+    chunk_off: torch.Tensor
+
+
+def chunk_offsets(tile_starts: torch.Tensor,
+                  settings: RasterSettings) -> torch.Tensor:
+    """[n_tiles + 1] int32: each tile's first staging batch, counted over
+    all tiles (computed where tile_starts lies, without a host sync)."""
+    B = settings.tile_pixels
+    counts = tile_starts[1:].to(torch.int64) - tile_starts[:-1]
+    off = torch.zeros_like(tile_starts)
+    off[1:] = torch.cumsum((counts + B - 1) // B, 0)
+    return off
+
+
+def max_chunks(n_rows: int, settings: RasterSettings) -> int:
+    """A host-side bound on the staging batches of n_rows instances:
+    sum_t ceil(count_t / B) <= n_rows // B + n_tiles."""
+    return n_rows // settings.tile_pixels + settings.num_tiles
+
+
+def new_checkpoints(tile_starts: torch.Tensor, n_rows: int,
+                    settings: RasterSettings, C: int) -> Checkpoints:
+    """An unwritten checkpoint buffer for a forward over n_rows instances
+    (``torch.empty``: the forward writes what the backward reads)."""
+    state = torch.empty(max_chunks(n_rows, settings), CKPT_BASE + C,
+                        settings.tile_pixels, dtype=torch.float32,
+                        device=tile_starts.device)
+    return Checkpoints(state=state,
+                       chunk_off=chunk_offsets(tile_starts, settings))
 
 
 def pack_payload(prep, opacity, features):
@@ -222,8 +266,11 @@ def intersect(inst: Instances, g: TileGrid, idx, in_rng) -> Hits:
 
 def composite_forward_reference(rows: torch.Tensor, tile_starts: torch.Tensor,
                                 params, settings: RasterSettings, C: int,
-                                S: int) -> CompositeOut:
-    """Plain PyTorch version of the forward compositing kernel."""
+                                S: int, ckpt: Checkpoints | None = None
+                                ) -> CompositeOut:
+    """Plain PyTorch version of the forward compositing kernel; with
+    ``ckpt`` it also fills the checkpoint of every batch a tile reaches,
+    from its running state before the block vote, as the kernel does."""
     dev = rows.device
     f32 = torch.float32
     B = settings.tile_pixels              # one CTA batch = one per pixel
@@ -248,8 +295,15 @@ def composite_forward_reference(rows: torch.Tensor, tile_starts: torch.Tensor,
     n_batches = -(-int(counts.max()) // B) if n_tiles else 0
 
     for c in range(n_batches):
+        reached = alive & (counts > c * B)
+        if ckpt is not None:
+            r = torch.nonzero(reached)[:, 0]
+            ckpt.state[ckpt.chunk_off[r].to(torch.int64) + c] = torch.cat(
+                [T_run[r, None], acc[r, :C], acc[r, C + S:],
+                 torch.stack([dsum[r], d2sum[r], wsum[r], M1[r], M2[r]],
+                             dim=1)], dim=1)
         # the kernel's vote: walk batch c while some pixel has T >= T_STOP
-        alive = alive & (counts > c * B)
+        alive = reached & (T_run >= T_STOP).any(dim=1)
         idx = torch.nonzero(alive)[:, 0]
         if idx.numel() == 0:
             break
@@ -298,10 +352,8 @@ def composite_forward_reference(rows: torch.Tensor, tile_starts: torch.Tensor,
             nc = torch.where(accept, pos1, 0.0).amax(dim=1)
             n_contrib[idx] = torch.maximum(n_contrib[idx], nc)
 
-        T_new = T_run[idx] * incl[:, -1]
-        T_run[idx] = T_new
+        T_run[idx] = T_run[idx] * incl[:, -1]
         walked[idx] += in_rng.sum(1)
-        alive[idx] = (T_new >= T_STOP).any(dim=1)
 
     misc = torch.stack([T_run, n_contrib, med_pos, M1, M2,
                         walked[:, None].to(f32).expand(n_tiles, B), wsum,
@@ -334,19 +386,41 @@ def _check_inputs(rows, tile_starts, settings: RasterSettings, C, S):
         raise ValueError(f"C + S = {C + S} exceeds the kernel's {MAX_BLEND}")
 
 
+def _check_checkpoints(ckpt: Checkpoints, rows, settings: RasterSettings,
+                       C: int):
+    want = (max_chunks(rows.shape[0], settings), CKPT_BASE + C,
+            settings.tile_pixels)
+    st, off = ckpt
+    if st.dtype != torch.float32 or tuple(st.shape) != want or \
+            st.device != rows.device or not st.is_contiguous():
+        raise ValueError(f"checkpoint state must be a contiguous float32 "
+                         f"{want} tensor on {rows.device}, got {st.dtype} "
+                         f"{tuple(st.shape)} on {st.device}")
+    if off.dtype != torch.int32 or \
+            tuple(off.shape) != (settings.num_tiles + 1,) or \
+            off.device != rows.device or not off.is_contiguous():
+        raise ValueError(f"chunk_off must be a contiguous int32 "
+                         f"[{settings.num_tiles + 1}] tensor on "
+                         f"{rows.device}")
+
+
 def composite_forward(rows: torch.Tensor, tile_starts: torch.Tensor, params,
-                      settings: RasterSettings, C: int,
-                      S: int) -> CompositeOut:
+                      settings: RasterSettings, C: int, S: int,
+                      ckpt: Checkpoints | None = None) -> CompositeOut:
     """Composite sorted instance rows into a panorama.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel on
-    the current stream (``composite_forward.launches`` counts those
-    launches); any other device raises.
+    With ``ckpt`` (``new_checkpoints``), the walk also writes its
+    checkpoints there, for the backward kernel; the outputs are the same
+    bit for bit. CPU tensors run the plain version; CUDA tensors launch
+    the kernel on the current stream (``composite_forward.launches``
+    counts those launches); any other device raises.
     """
     _check_inputs(rows, tile_starts, settings, C, S)
+    if ckpt is not None:
+        _check_checkpoints(ckpt, rows, settings, C)
     if rows.device.type == "cpu":
         return composite_forward_reference(rows, tile_starts, params,
-                                           settings, C, S)
+                                           settings, C, S, ckpt)
     if rows.device.type != "cuda":
         raise ValueError(f"composite_forward runs on cpu or cuda tensors, "
                          f"not {rows.device}")
@@ -358,6 +432,8 @@ def composite_forward(rows: torch.Tensor, tile_starts: torch.Tensor, params,
     feat = torch.empty(S + 3, H, W, **empty)
     depth = torch.empty(4, H, W, **empty)
     misc = torch.empty(8, H, W, **empty)
+    ck_off, ck_state = ((None, None) if ckpt is None else
+                        (ckpt.chunk_off.data_ptr(), ckpt.state.data_ptr()))
     dev = rows.device.index if rows.device.index is not None \
         else torch.cuda.current_device()
     with torch.cuda.device(dev):
@@ -367,8 +443,8 @@ def composite_forward(rows: torch.Tensor, tile_starts: torch.Tensor, params,
             settings.num_tiles, settings.tiles_x, settings.tile_h,
             settings.tile_w, H, W, C, S, *params,
             int(settings.compute_distortion), int(settings.compute_contrib),
-            color.data_ptr(), feat.data_ptr(), depth.data_ptr(),
-            misc.data_ptr(), stream)
+            ck_off, ck_state, color.data_ptr(), feat.data_ptr(),
+            depth.data_ptr(), misc.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"composite_fwd kernel launch failed: CUDA error "
                            f"{err}")

@@ -8,8 +8,12 @@ differentiated; the binning inputs set the instance order, which has no
 gradient (pallas_op.py:100-103).
 
 * forward: ``bin_gaussians`` (one host sync, an exact-size instance list,
-  one payload gather), then the forward compositing kernel;
-* backward: the backward compositing kernel writes one gradient row per
+  one payload gather), then the forward compositing kernel, which, when
+  the rows will need a gradient, also leaves its checkpoints (each
+  pixel's running state at the start of every staging batch) for the
+  backward;
+* backward: the backward compositing kernel, started per (tile, batch)
+  from those checkpoints, writes one gradient row per
   sorted instance, and the per-gaussian reduction sums each gaussian's
   rows: ``zeros(P, D).index_add_(0, gid_sorted, table)``. The JAX package
   did that reduction in XLA outside any Pallas kernel
@@ -24,8 +28,10 @@ import torch
 
 from gslidar_tpu_torch.raster.binning import bin_gaussians
 from gslidar_tpu_torch.raster.composite_bwd import composite_backward
-from gslidar_tpu_torch.raster.composite_fwd import (CompositeOut,
-                                                    composite_forward)
+from gslidar_tpu_torch.raster.composite_fwd import (Checkpoints,
+                                                    CompositeOut,
+                                                    composite_forward,
+                                                    new_checkpoints)
 
 
 class CompositeOp(torch.autograd.Function):
@@ -33,27 +39,33 @@ class CompositeOp(torch.autograd.Function):
 
     ``apply(packed, rect_min, rect_max, bin_depth, tiles_touched,
     scale_factor, params, settings, C, S, info)``: ``info`` is a dict that
-    receives ``num_pairs``, the instances composited. Of the outputs only
+    receives ``num_pairs``, the instances composited. The forward keeps
+    its checkpoints only when ``packed`` needs a gradient (rows packed
+    under ``no_grad``, as serving packs them, do not). Of the outputs only
     color, feature, depth and misc slot 0 (final T) carry gradients.
     """
 
     @staticmethod
     def forward(ctx, packed, rect_min, rect_max, bin_depth, tiles_touched,
                 scale_factor, params, settings, C, S, info):
+        differentiable = ctx.needs_input_grad[0]
         binning = bin_gaussians(rect_min, rect_max, bin_depth, tiles_touched,
                                 scale_factor, settings, payload=packed)
         rows = binning.data_rows.contiguous()
+        ckpt = (new_checkpoints(binning.tile_starts, rows.shape[0], settings,
+                                C) if differentiable else None)
         out = composite_forward(rows, binning.tile_starts, params, settings,
-                                C, S)
+                                C, S, ckpt)
         info["num_pairs"] = binning.num_pairs
-        ctx.save_for_backward(rows, binning.tile_starts, binning.gid_sorted,
-                              *out)
+        if differentiable:
+            ctx.save_for_backward(rows, binning.tile_starts,
+                                  binning.gid_sorted, *ckpt, *out)
         ctx.meta = (params, settings, C, S, packed.shape[0])
         return tuple(out)
 
     @staticmethod
     def backward(ctx, gC, gF, gD4, gMisc):
-        rows, tile_starts, gid, *outs = ctx.saved_tensors
+        rows, tile_starts, gid, state, chunk_off, *outs = ctx.saved_tensors
         params, settings, C, S, P = ctx.meta
         fwd = CompositeOut(*outs)
 
@@ -65,6 +77,6 @@ class CompositeOp(torch.autograd.Function):
         table = composite_backward(
             rows, tile_starts, fwd,
             (ct(gC, fwd.color), ct(gF, fwd.feature), ct(gD4, fwd.depth), gT),
-            params, settings, C, S)
+            params, settings, C, S, Checkpoints(state, chunk_off))
         grad = rows.new_zeros(P, rows.shape[1]).index_add_(0, gid, table)
         return (grad,) + (None,) * 10

@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_scenes import settings_pair, splat_scene, to_jax
+from torch_scenes import (deep_tile_scene, port_rows, settings_pair,
+                          splat_scene, to_jax, to_torch)
 
 torch.set_num_threads(2)
 
@@ -146,6 +147,77 @@ def test_reference_edge_on_splat_finite():
     _assert_close(xla, out, 0)
 
 
+def _ckpt_case(case, device="cpu"):
+    """(rows, starts, params, settings) of the port's own preprocess and
+    binning: ``normal``, ``dense`` (opacity 0.95, some tiles stop before
+    their lists end) or ``deep`` (one tile walks 12 staging batches)."""
+    from gslidar_tpu_torch.raster.composite_fwd import make_params
+    from gslidar_tpu_torch.raster.settings import RasterSettings
+    rng = np.random.default_rng({"normal": 1, "dense": 4, "deep": 7}[case])
+    if case == "deep":
+        sc = deep_tile_scene(rng)
+    else:
+        sc = splat_scene(rng, P=1500 if case == "dense" else 400)
+    if case == "dense":
+        sc["opac"] = np.full_like(sc["opac"], 0.95)
+    ts = RasterSettings(height=30, width=130, vfov=(-20.0, 20.0),
+                        hfov=(-60.0, 60.0), num_extra_features=2)
+    sc = {k: v.to(device) for k, v in to_torch(sc).items()}
+    rows, starts = port_rows(sc, ts)
+    return rows, starts, make_params(1.0, ts), ts
+
+
+@pytest.mark.parametrize("case", ["normal", "dense", "deep"])
+def test_checkpoints_leave_outputs_bitwise_unchanged(case):
+    from gslidar_tpu_torch.raster import composite_fwd as cf
+    rows, starts, params, ts = _ckpt_case(case)
+    ckpt = cf.new_checkpoints(starts, rows.shape[0], ts, 4)
+    with_ = cf.composite_forward(rows, starts, params, ts, 4, 2, ckpt)
+    without = cf.composite_forward(rows, starts, params, ts, 4, 2)
+    for a_, b_ in zip(with_, without):
+        assert torch.equal(a_, b_)
+
+
+@pytest.mark.parametrize("case", ["normal", "dense", "deep"])
+def test_reference_checkpoint_zero_is_the_start(case):
+    """Every tile's first checkpoint: T = 1 inside the image, 0 in the
+    tile padding; every running sum 0."""
+    from gslidar_tpu_torch.raster import composite_fwd as cf
+    from gslidar_tpu_torch.raster.composite_bwd import _tile
+    rows, starts, params, ts = _ckpt_case(case)
+    ckpt = cf.new_checkpoints(starts, rows.shape[0], ts, 4)
+    cf.composite_forward_reference(rows, starts, params, ts, 4, 2, ckpt)
+    counts = starts[1:] - starts[:-1]
+    assert int(ckpt.chunk_off[-1]) == int(((counts + 255) // 256).sum())
+    inside = _tile(torch.ones(1, ts.height, ts.width), ts)[:, 0]
+    for t in torch.nonzero(counts > 0)[:, 0].tolist():
+        first = ckpt.state[int(ckpt.chunk_off[t])]
+        assert torch.equal(first[0], inside[t])
+        assert float(first[1:].abs().max()) == 0.0
+
+
+def test_reference_checkpoint_after_the_walk_holds_the_totals():
+    """Where the block vote stopped a tile before its list ended, the
+    checkpoint of the batch it did not walk (written before the vote) holds
+    the forward's totals, bit for bit: final T, the color and normal sums,
+    sum w*d, sum w*d^2, sum w, M1 and M2."""
+    from gslidar_tpu_torch.raster import composite_fwd as cf
+    from gslidar_tpu_torch.raster.composite_bwd import _tile
+    rows, starts, params, ts = _ckpt_case("dense")
+    ckpt = cf.new_checkpoints(starts, rows.shape[0], ts, 4)
+    out = cf.composite_forward_reference(rows, starts, params, ts, 4, 2,
+                                         ckpt)
+    totals = _tile(torch.cat(
+        [out.misc[0:1], out.color, out.feature[2:5], out.depth[0:1],
+         out.depth[3:4], out.misc[6:7], out.misc[3:5]]), ts)
+    walked = out.misc[5, ::ts.tile_h, ::ts.tile_w].reshape(-1).long()
+    counts = (starts[1:] - starts[:-1]).long()
+    stopped = torch.nonzero(walked < counts)[:, 0]
+    assert stopped.numel() > 0
+    at = ckpt.chunk_off[stopped].long() + walked[stopped] // ts.tile_pixels
+    assert torch.equal(ckpt.state[at], totals[stopped])
+
+
 def _rows(ts, n=64, seed=0):
     g = torch.Generator().manual_seed(seed)
     rows = torch.rand(n, 10 + 4 + 2, generator=g)
@@ -243,3 +315,33 @@ def test_kernel_matches_plain_on_card(cuda_device):
     assert cb.composite_backward.launches == bwd0 + 1
     for g in grads:
         assert torch.isfinite(g).all() and float(g.abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_kernel_checkpoints_on_card(cuda_device):
+    """On the card: the forward kernel's outputs are bitwise the same with
+    and without the checkpoint buffer, on the deep tile and a dense scene,
+    and the checkpoints of every batch the walk took agree with the plain
+    version's (T within 1e-4; the sums within 1e-4 of their largest
+    magnitude, as the outputs)."""
+    from gslidar_tpu_torch.raster import composite_fwd as cf
+    for case in ("deep", "dense"):
+        rows, starts, params, ts = _ckpt_case(case, cuda_device)
+        ckpt = cf.new_checkpoints(starts, rows.shape[0], ts, 4)
+        with_ = cf.composite_forward(rows, starts, params, ts, 4, 2, ckpt)
+        without = cf.composite_forward(rows, starts, params, ts, 4, 2)
+        plain = cf.new_checkpoints(starts, rows.shape[0], ts, 4)
+        cf.composite_forward_reference(rows, starts, params, ts, 4, 2, plain)
+        torch.cuda.synchronize()
+        for a_, b_ in zip(with_, without):
+            assert torch.equal(a_, b_)
+        walked = with_.misc[5, ::ts.tile_h, ::ts.tile_w].reshape(-1).long()
+        taken = torch.cat([
+            torch.arange(int(ckpt.chunk_off[t]), int(ckpt.chunk_off[t])
+                         + (int(walked[t]) + 255) // 256)
+            for t in range(ts.num_tiles)]).to(cuda_device)
+        k, p = ckpt.state[taken], plain.state[taken]
+        assert float((k[:, 0] - p[:, 0]).abs().max()) <= 1e-4
+        scale = p[:, 1:].abs().amax((0, 2)).clamp_min(1e-30)
+        assert float(((k[:, 1:] - p[:, 1:]).abs().amax((0, 2))
+                      / scale).max()) <= 1e-4

@@ -230,6 +230,65 @@ def test_edge_on_fixture_matches_pallas_backward(interpret_pallas):
     np.testing.assert_allclose(g, jg, atol=1e-4 * np.abs(jg).max())
 
 
+@pytest.mark.parametrize("case", ["normal", "dense", "deep"])
+def test_reference_from_checkpoints_matches_sequential_walk(case):
+    """The plain backward started per batch from the forward's checkpoints
+    (the kernel's chunks) against its walk carried from batch to batch:
+    only the prefix P's rounding order differs. Bar: per column, 1e-5 of
+    its largest magnitude; the same rows are zero."""
+    from gslidar_tpu_torch.raster import composite_fwd as cf
+    from gslidar_tpu_torch.raster.composite_bwd import \
+        composite_backward_reference
+    from test_torch_composite import _ckpt_case
+    rows, starts, params, ts = _ckpt_case(case)
+    ckpt = cf.new_checkpoints(starts, rows.shape[0], ts, 4)
+    fwd = cf.composite_forward_reference(rows, starts, params, ts, 4, 2,
+                                         ckpt)
+    cts = _cotangents(ts, 4, 2, seed=20)
+    chunked = composite_backward_reference(rows, starts, fwd, cts, params,
+                                           ts, 4, 2, ckpt)
+    walk = composite_backward_reference(rows, starts, fwd, cts, params, ts,
+                                        4, 2)
+    assert torch.isfinite(chunked).all()
+    assert torch.equal(chunked == 0, walk == 0)
+    assert _col_err(chunked, walk).max() <= 1e-5
+    if case == "deep":                  # a tile walked several batches
+        assert int((ckpt.chunk_off[1:] - ckpt.chunk_off[:-1]).max()) >= 3
+
+
+def test_only_a_differentiable_forward_keeps_checkpoints(monkeypatch):
+    """rasterize asks the forward for checkpoints only when a backward can
+    follow: not under no_grad (the serving path), not for inputs that need
+    no gradient; and the outputs are the same either way."""
+    import gslidar_tpu_torch.raster.composite_op as co
+    from gslidar_tpu_torch.raster.rasterize import rasterize
+    sc, _, ts = _scene("normal")
+    t = to_torch(sc)
+    made = []
+
+    def counted(*a):
+        made.append(1)
+        return keep(*a)
+
+    keep = co.new_checkpoints
+    monkeypatch.setattr(co, "new_checkpoints", counted)
+
+    def run(grad):
+        means = t["means"].clone().requires_grad_(grad)
+        return rasterize(means, t["scales"], t["quats"], t["opac"], t["shs"],
+                         t["feats"], t["mask"], t["viewmat"], t["campos"],
+                         torch.zeros(4), 3, 1.0, ts)
+
+    with torch.no_grad():
+        served = run(True)
+    plain = run(False)
+    assert made == []
+    trained = run(True)
+    assert made == [1]
+    for a_, b_, c_ in zip(served[:6], plain[:6], trained[:6]):
+        assert torch.equal(a_, b_) and torch.equal(a_, c_.detach())
+
+
 def _small_case():
     from gslidar_tpu_torch.raster.composite_fwd import (
         composite_forward_reference, make_params)
@@ -282,10 +341,11 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_backward_kernel_matches_plain_on_card(cuda_device):
-    """On the card, without JAX: the backward kernel against its plain
-    version on the port's own forward kernel outputs (chip_smoke.py's bar:
-    per column, max error <= 1e-4 of the column's largest magnitude), one
-    counted launch, a finite table."""
+    """On the card, without JAX: the backward kernel, started per chunk
+    from the forward kernel's checkpoints, against its plain version
+    walking each tile from its start, on the port's own forward kernel
+    outputs (chip_smoke.py's bar: per column, max error <= 1e-4 of the
+    column's largest magnitude), one counted launch, a finite table."""
     from gslidar_tpu_torch.raster import composite_bwd as cb
     from gslidar_tpu_torch.raster import composite_fwd as cf
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -293,13 +353,48 @@ def test_backward_kernel_matches_plain_on_card(cuda_device):
     rows, starts = _rows(sc, ts)
     rows, starts = rows.to(cuda_device), starts.to(cuda_device)
     params = cf.make_params(1.0, ts)
-    fwd = cf.composite_forward(rows, starts, params, ts, 4, 2)
+    ckpt = cf.new_checkpoints(starts, rows.shape[0], ts, 4)
+    fwd = cf.composite_forward(rows, starts, params, ts, 4, 2, ckpt)
     cts = [x.to(cuda_device) for x in _cotangents(ts, 4, 2, 5)]
     before = cb.composite_backward.launches
-    k = cb.composite_backward(rows, starts, fwd, cts, params, ts, 4, 2)
+    k = cb.composite_backward(rows, starts, fwd, cts, params, ts, 4, 2,
+                              ckpt)
     p = cb.composite_backward_reference(rows, starts, fwd, cts, params, ts,
                                         4, 2)
     torch.cuda.synchronize()
     assert cb.composite_backward.launches == before + 1
     assert torch.isfinite(k).all()
+    assert _col_err(k.cpu(), p.cpu()).max() <= 1e-4
+    with pytest.raises(ValueError):         # the kernel needs checkpoints
+        cb.composite_backward(rows, starts, fwd, cts, params, ts, 4, 2)
+
+
+@pytest.mark.cuda
+def test_backward_kernel_on_a_deep_tile_on_card(cuda_device):
+    """A tile that walks 12 staging batches, with pixels whose median
+    (T = 0.5) and 1e-4 floor fall after the first: every chunk of the
+    kernel starts from its checkpoint. The kernel against the plain
+    version walking the tile from its start, at the bar above, finite, and
+    bitwise the same on a second run."""
+    from gslidar_tpu_torch.raster import composite_bwd as cb
+    from gslidar_tpu_torch.raster import composite_fwd as cf
+    from test_torch_composite import _ckpt_case
+    rows, starts, params, ts = _ckpt_case("deep", cuda_device)
+    ckpt = cf.new_checkpoints(starts, rows.shape[0], ts, 4)
+    fwd = cf.composite_forward(rows, starts, params, ts, 4, 2, ckpt)
+    walked = fwd.misc[5, ::ts.tile_h, ::ts.tile_w].reshape(-1)
+    t = int(walked.argmax())
+    assert int(walked[t]) > 2 * ts.tile_pixels
+    _, _, _, misc = (cb._tile(x, ts)[t] for x in fwd)
+    floor_late = (misc[0] < 1e-4) & (misc[1] > ts.tile_pixels)
+    assert bool((misc[2] > ts.tile_pixels).any()) and bool(floor_late.any())
+    cts = [x.to(cuda_device) for x in _cotangents(ts, 4, 2, 8)]
+    k = cb.composite_backward(rows, starts, fwd, cts, params, ts, 4, 2,
+                              ckpt)
+    again = cb.composite_backward(rows, starts, fwd, cts, params, ts, 4, 2,
+                                  ckpt)
+    p = cb.composite_backward_reference(rows, starts, fwd, cts, params, ts,
+                                        4, 2)
+    torch.cuda.synchronize()
+    assert torch.isfinite(k).all() and torch.equal(k, again)
     assert _col_err(k.cpu(), p.cpu()).max() <= 1e-4

@@ -321,9 +321,19 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_gather_kernel_matches_plain_on_card(cuda_device):
-    for P, D, K in ((100_000, 128, 300_000), (100_000, 18, 300_001),
-                    (1000, 5, 777)):
+    """Bitwise against index_select: float4 units (D = 128), float2 units
+    (D = 18), float units (D = 17, 5), and a D = 128 table whose data
+    starts one float into its storage (float units again)."""
+    for P, D, K, shift in ((100_000, 128, 300_000, 0),
+                           (100_000, 18, 300_001, 0),
+                           (100_000, 17, 300_002, 0), (1000, 5, 777, 0),
+                           (10_000, 128, 30_000, 1)):
         table, ids = dma_gather.make_inputs(P, D, K, 1, cuda_device)
+        if shift:
+            flat = torch.empty(P * D + shift, device=cuda_device)
+            flat[shift:] = table.reshape(-1)
+            table = flat[shift:].view(P, D)
+            assert table.data_ptr() % 16 == 4 * shift
         n = dma_gather.gather_rows.launches
         out = dma_gather.gather_rows(table, ids)
         torch.cuda.synchronize()
@@ -365,6 +375,9 @@ def test_composite_bounds_hand_counted():
     assert (w.needed_pairs, w.walked_pairs) == (250, 512)
     assert (w.needed_instances, w.accepting_pixels) == (2, 150)
     assert w.walked_over_needed == 512 / 250
+    # the walk: one tile of 2 instances, one staging batch
+    assert (w.tile_walked_max, w.tile_walked_mean) == (2, 2.0)
+    assert (w.heavy_tenth_share, w.walked_chunks) == (1.0, 1)
     D = 10 + C + S
     assert w.n_bytes == 2 * D * 4 + 2 * 4 + (C + S + 3 + 4 + 8) * 256 * 4
     assert w.fp32 == (256 * bounds.RAY_FP32 + 250 * bounds.INTERSECT_FP32

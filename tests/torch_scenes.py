@@ -3,31 +3,13 @@
 Every scene is numpy, made from a seed, and handed to both packages: the
 JAX reference (``gslidar_tpu``) and the PyTorch port
 (``gslidar_tpu_torch``). The JAX side runs its plain XLA path
-(``backend="xla"``) with caps large enough that nothing is dropped.
+(``backend="xla"``) with caps large enough that nothing is dropped. The
+scenes themselves are the port's (``gslidar_tpu_torch.raster.scenes``),
+which its smoke test on the card uses too.
 """
 
-import numpy as np
-
-
-def splat_scene(rng, P=256, S=2, wrap=False):
-    """P splats in front of an identity camera (or all around it when
-    ``wrap``), the shapes ``gslidar_tpu.raster.rasterize`` takes."""
-    theta = rng.uniform(np.pi / 2 - 0.3, np.pi / 2 + 0.3, P)
-    phi = (rng.uniform(-np.pi, np.pi, P) if wrap
-           else rng.uniform(-0.9, 0.9, P))
-    r = rng.uniform(4, 40, P)
-    means = np.stack([r * np.sin(theta) * np.sin(phi), -r * np.cos(theta),
-                      r * np.sin(theta) * np.cos(phi)], 1)
-    return dict(
-        means=means.astype(np.float32),
-        scales=rng.uniform(0.3, 1.5, (P, 3)).astype(np.float32),
-        quats=rng.normal(size=(P, 4)).astype(np.float32),
-        opac=rng.uniform(0.2, 0.95, P).astype(np.float32),
-        shs=(rng.normal(size=(P, 16, 4)) * 0.2).astype(np.float32),
-        feats=rng.normal(size=(P, S)).astype(np.float32),
-        mask=np.ones(P, bool),
-        viewmat=np.eye(4, dtype=np.float32),
-        campos=np.zeros(3, np.float32))
+from gslidar_tpu_torch.raster.scenes import (  # noqa: F401
+    deep_tile_scene, port_rows, splat_scene)
 
 
 def settings_pair(height=30, width=130, hfov=(-60.0, 60.0), S=2,
