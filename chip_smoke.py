@@ -15,12 +15,15 @@ failing phase raises:
    against their plain PyTorch versions on seeded scenes (a 66x1030 wrap_x
    panorama with splats across the seam, distortion on and off; a 16x16
    tile that walks 12 staging batches, with pixels whose median and 1e-4
-   floor fall after the first, which must walk >= 3; the edge-on
-   fixture), the backward with seeded random cotangents, the kernel
-   started per chunk from the forward kernel's checkpoints and the plain
-   version walking each tile from its start; the forward kernel's outputs
-   must be the same bit for bit with and without its checkpoint buffer,
-   and its checkpoints agree with the plain forward's;
+   floor fall after the first, which must walk >= 3; a tile of >= 40
+   batches that turns opaque within its first 2, where the walk must stop
+   after 2; a tile of >= 263 batches, the heaviest 360-degree tile's
+   length, walked to its end; the edge-on fixture), the backward with
+   seeded random cotangents, the kernel started per chunk from the forward
+   kernel's checkpoints and the plain version walking each tile from its
+   start; the forward kernel's outputs must be the same bit for bit run
+   twice, and with and without its checkpoint buffer, and its checkpoints
+   agree with the plain forward's;
 4. serving path: a seeded 1,000,000-gaussian model of kitti360_nvs_1908's
    shape (SH degree 3, 66x515 halves rendered as one 66x1030 wrap_x
    panorama) served through ``gslidar_tpu_torch.render.render_scene`` over
@@ -31,9 +34,12 @@ failing phase raises:
    distance to a tile edge);
 5. the forward kernel vs plain at full size on one of those views, timed
    with CUDA events in turns (median of 10 each after warm-up), with the
-   whole 360 render, its preprocess and its binning (median of 5); the
-   walk per tile there (instances walked, largest and mean, the heaviest
-   tenth's share of the walked pairs) and what each compositor takes at
+   whole 360 render, its preprocess and its binning (median of 5), and
+   the device time of each of the forward's four passes (product, scan,
+   blend, merge; ``torch.profiler``, median of 10 forwards); the walk per
+   tile there (instances walked, largest and mean, the heaviest tenth's
+   share of the walked pairs, the batches the blend pass walks and the
+   tiles hold) and what each compositor and each forward pass takes at
    its launch (registers, shared memory, spills, resident CTAs per SM,
    grid);
 6. training path (the main path): ``gslidar_tpu_torch.train.training`` for
@@ -50,13 +56,15 @@ failing phase raises:
    against the plain version, and the backward kernel against its plain
    version, on that step's rows with seeded random cotangents; CUDA-event
    timings (median of 5 after warm-up) of the whole step and of its
-   stages (the forward kernel with and without checkpoints), the backward
-   kernel against the plain version (median of 3), and the device's idle
-   share over 3 steps from ``torch.profiler``; the walk and the
-   compositors' resources as in phase 5;
+   stages (the forward kernel with and without checkpoints, and the
+   device time of each of its passes with them, as in phase 5), the
+   backward kernel against the plain version (median of 3), and the
+   device's idle share over 3 steps from ``torch.profiler``; the walk and the compositors' resources as in
+   phase 5;
    with the least-time bounds (``gslidar_tpu_torch.microbench.bounds``)
    of the forward kernel on phase 5's 360-degree view and of both kernels
-   on this training view, and their walked / needed pair ratios;
+   on this training view, their walked / needed pair ratios, and the
+   pairs the forward's product pass walks;
 8. gather path: ``python -m gslidar_tpu_torch.microbench.dma_gather``
    driven in-process at the script's shape (a) [1M, 128] f32 by 2,260,992
    ids and at the binning payload's shape (b) [1M, 18] by 2,662,848 ids
@@ -78,12 +86,14 @@ failing phase raises:
 Tolerances, forward kernel vs plain: color, features, normal, alpha and
 final T at atol 1e-4; mean depth and sum w*d^2 at rtol 1e-4 + atol 1e-3;
 distortion at atol 1e-4. The two run the same IEEE per-pixel arithmetic
-but take the transmittance products and channel sums in another order, so
-a T_before within rounding of 0.5 (median) or of the 1e-4 floor can flip
-a choice: median depth, median position and n_contrib must be equal on
+and carry T across batches alike (T times the batch's product), but take
+the products inside a batch and the channel sums in another order, so a
+T_before within rounding of 0.5 (median) or of the 1e-4 floor can flip a
+choice: median depth, median position and n_contrib must be equal on
 >= 99.9% of pixels, and a pixel whose n_contrib flipped is left out of the
 continuous comparisons (its last contribution is in one sum and not the
-other). Flip counts and maximum errors are printed.
+other). The instances each tile walked (misc slot 5) must be equal on
+every tile. Flip counts and maximum errors are printed.
 
 Backward kernel vs plain: per gradient column, the maximum error relative
 to the column's largest magnitude must be finite and <= 1e-4, and the
@@ -236,11 +246,29 @@ def compare(kern, plain, C, S):
                  median=int(med_flip.sum()), walked=int(walked_diff.sum()))
     finite = all(bool(torch.isfinite(x).all()) for x in kern)
     ok = (finite and all(v <= ATOL for v in e.values()) and depth_over <= 0
-          and all(v <= MAX_FLIP_FRAC * n_pix for v in flips.values()))
+          and all(v <= MAX_FLIP_FRAC * n_pix for v in flips.values())
+          and flips["walked"] == 0)
     summary = dict(max_err={k: float(f"{v:.3g}") for k, v in e.items()},
                    depth_over_tol=float(f"{depth_over:.3g}"), flips=flips,
                    pixels=n_pix, finite=finite, raw_max_abs_err=raw)
     return ok, summary
+
+
+def taken_batches(kern, plain, ckpt, settings):
+    """The staging batches both walks took, as indices into a checkpoint
+    buffer, and their batch number within their tile."""
+    import torch
+    from gslidar_tpu_torch.raster.composite_bwd import walked_per_tile
+    dev = ckpt.state.device
+    B = settings.tile_pixels
+    walked = torch.minimum(walked_per_tile(kern, settings),
+                           walked_per_tile(plain, settings)).long()
+    n_b = (walked + B - 1) // B                       # batches per tile
+    tile_of = torch.repeat_interleave(
+        torch.arange(settings.num_tiles, device=dev), n_b)
+    c = (torch.arange(tile_of.numel(), device=dev)
+         - (torch.cumsum(n_b, 0) - n_b)[tile_of])
+    return ckpt.chunk_off.long()[tile_of] + c, c, tile_of
 
 
 def compare_checkpoints(kern, plain, kern_ck, plain_ck, settings):
@@ -253,17 +281,8 @@ def compare_checkpoints(kern, plain, kern_ck, plain_ck, settings):
     tile in the plain walk is printed, and must exceed the T bar wherever
     a tile walks two batches. Returns (ok, summary dict)."""
     import torch
-    from gslidar_tpu_torch.raster.composite_bwd import _tile, walked_per_tile
-    dev = kern_ck.state.device
-    B = settings.tile_pixels
-    walked = torch.minimum(walked_per_tile(kern, settings),
-                           walked_per_tile(plain, settings)).long()
-    n_b = (walked + B - 1) // B                       # batches per tile
-    tile_of = torch.repeat_interleave(
-        torch.arange(settings.num_tiles, device=dev), n_b)
-    c = (torch.arange(tile_of.numel(), device=dev)
-         - (torch.cumsum(n_b, 0) - n_b)[tile_of])
-    taken = kern_ck.chunk_off.long()[tile_of] + c
+    from gslidar_tpu_torch.raster.composite_bwd import _tile
+    taken, c, tile_of = taken_batches(kern, plain, kern_ck, settings)
     keep = _tile((kern.misc[1:2] == plain.misc[1:2]).float(),
                  settings)[:, 0][tile_of][:, None, :] > 0
     k, p = kern_ck.state[taken], plain_ck.state[taken]
@@ -286,27 +305,34 @@ def compare_checkpoints(kern, plain, kern_ck, plain_ck, settings):
 
 def run_pair(rows, tile_starts, params, settings, C, S):
     """Forward kernel vs plain: (ok, summary, the kernel's CompositeOut,
-    its checkpoints). The kernel runs with and without the checkpoint
-    buffer, whose outputs must be the same bit for bit; the plain version
-    fills a buffer of its own, which the kernel's must agree with
-    (``compare_checkpoints``)."""
+    its checkpoints). The kernel runs twice with the checkpoint buffer and
+    once without: all three must give the same bits, and the two buffers
+    the same checkpoints; the plain version fills a buffer of its own,
+    which the kernel's must agree with (``compare_checkpoints``)."""
     import torch
     from gslidar_tpu_torch.raster.composite_fwd import (
         composite_forward, composite_forward_reference, new_checkpoints)
     ckpt = new_checkpoints(tile_starts, rows.shape[0], settings, C)
+    again_ck = new_checkpoints(tile_starts, rows.shape[0], settings, C)
     plain_ck = new_checkpoints(tile_starts, rows.shape[0], settings, C)
     kern = composite_forward(rows, tile_starts, params, settings, C, S, ckpt)
+    again = composite_forward(rows, tile_starts, params, settings, C, S,
+                              again_ck)
     bare = composite_forward(rows, tile_starts, params, settings, C, S)
     plain = composite_forward_reference(rows, tile_starts, params, settings,
                                         C, S, plain_ck)
     torch.cuda.synchronize()
     ok, summ = compare(kern, plain, C, S)
     same = all(torch.equal(a, b) for a, b in zip(kern, bare))
+    taken = taken_batches(kern, kern, ckpt, settings)[0]
+    repeats = (all(torch.equal(a, b) for a, b in zip(kern, again))
+               and torch.equal(ckpt.state[taken], again_ck.state[taken]))
     summ["checkpoints_leave_outputs_bitwise_equal"] = same
+    summ["repeats_bitwise"] = repeats
     ck_ok, summ["checkpoints_vs_plain"] = compare_checkpoints(
         kern, plain, ckpt, plain_ck, settings)
-    del plain_ck
-    return ok and same and ck_ok, summ, kern, ckpt
+    del plain_ck, again_ck
+    return ok and same and repeats and ck_ok, summ, kern, ckpt
 
 
 def random_cotangents(settings, C, S, seed, device):
@@ -428,6 +454,49 @@ def deep_tile(device):
         params, s, 4, 2, ckpt)
 
 
+def heavy_tile(device, name):
+    """One 16x16 tile of a 30x130 panorama that holds many staging
+    batches (``gslidar_tpu_torch.raster.scenes``): ``opaque``, >= 40
+    batches behind splats that make every pixel opaque within the first 2,
+    where the walk must stop after 2; ``long``, >= 263 batches (the
+    heaviest tile of a 360-degree view of 1M gaussians), walked to its
+    end, so that the scan and the merge cross every one. Both kernels
+    against their plain versions there: ((ok, summary), (ok, summary))."""
+    import numpy as np
+    import torch
+    from gslidar_tpu_torch.raster import scenes
+    from gslidar_tpu_torch.raster.composite_fwd import make_params
+    from gslidar_tpu_torch.raster.settings import RasterSettings
+    s = RasterSettings(height=30, width=130, vfov=(-20.0, 20.0),
+                       hfov=(-60.0, 60.0), num_extra_features=2)
+    scene, seed = {"opaque": (scenes.opaque_front_tile_scene, 11),
+                   "long": (scenes.long_tile_scene, 12)}[name]
+    sc = {k: torch.as_tensor(v, device=device) for k, v in
+          scene(np.random.default_rng(seed)).items()}
+    rows, starts = scenes.port_rows(sc, s)
+    params = make_params(1.0, s)
+    ok, summ, fwd, ckpt = run_pair(rows, starts, params, s, 4, 2)
+    counts = (starts[1:] - starts[:-1]).long()
+    t = int(counts.argmax())
+    B = s.tile_pixels
+    n_b = -(-int(counts[t]) // B)
+    walked = int(fwd.misc[5, ::s.tile_h, ::s.tile_w].reshape(-1)[t])
+    want = ((n_b >= 40 and walked == 2 * B) if name == "opaque"
+            else (n_b >= 263 and walked == int(counts[t])))
+    say(3, f"{name} tile: tile {t} holds {int(counts[t])} instances, "
+           f"{n_b} staging batches; walked {walked} instances "
+           f"({-(-walked // B)} batches; the bar: "
+           + ("2 of >= 40)" if name == "opaque" else "all of >= 263)"))
+    if not want:
+        raise RuntimeError(f"the {name} tile scene does not walk as it "
+                           "should")
+    summ["instances"] = rows.shape[0]
+    return (ok, summ), run_bwd_pair(
+        rows, starts, fwd, random_cotangents(s, 4, 2, SEED + 10 + seed,
+                                             device),
+        params, s, 4, 2, ckpt)
+
+
 def phase_kernel_vs_plain(device):
     import dataclasses
     import torch
@@ -463,6 +532,9 @@ def phase_kernel_vs_plain(device):
                                                    device), params, s, 4, 4,
                                  ckpt)
     results["deep_tile"], bwd["deep_tile"] = deep_tile(device)
+    for name in ("opaque", "long"):
+        results[f"{name}_tile"], bwd[f"{name}_tile"] = heavy_tile(device,
+                                                                  name)
 
     es = RasterSettings(height=48, width=96, vfov=(-20.0, 20.0),
                         hfov=(-60.0, 60.0), tile_h=8, tile_w=128)
@@ -707,11 +779,12 @@ def phase_full_size(args, params, alive, prior, cam, smi):
         rows, starts = b.data_rows.contiguous(), b.tile_starts
         params8 = make_params(sf, s)
         ok, summ, kout, _ = run_pair(rows, starts, params8, s, 4, 4)
-        work = composite_work(kout, s, rows.shape[0], 4, 4)
+        work = composite_work(kout, s, rows.shape[0], 4, 4,
+                              tile_starts=starts)
         del kout
         say_walk(5, "the 360-degree view (the forward without "
-                    "checkpoints, as serving runs it)", work, s,
-                 rows.shape[0], 4, 4, False)
+                    "checkpoints, as serving runs it)", work, s, starts,
+                 4, 4, False)
         say(5, f"kernel vs plain at full size ({b.num_pairs} instances, "
                f"{s.height}x{s.width}): {'ok' if ok else 'FAIL'} "
                f"{json.dumps(summ)}")
@@ -742,11 +815,13 @@ def phase_full_size(args, params, alive, prior, cam, smi):
                       "preprocess", "binning"):
                 ms[k].append(time_ms(stages[k], device))
         med = {k: statistics.median(v) for k, v in ms.items()}
+        passes = forward_pass_ms(kern)
     say(5, f"timing on {smi}: composite kernel {med['kernel']:.3f} ms, "
            f"plain {med['plain']:.3f} ms (median of {len(ms['kernel'])}); "
            f"whole 360 render through the kernel {med['render']:.3f} ms, of "
            f"which preprocess {med['preprocess']:.3f} ms and binning "
            f"{med['binning']:.3f} ms (median of {len(ms['render'])})")
+    say_passes(5, smi, passes, med["kernel"])
     return summ["raw_max_abs_err"], med, work
 
 
@@ -931,11 +1006,12 @@ def phase_train_step(args, scene, init_params, device, smi):
         co.bin_gaussians, co.composite_backward = bin_orig, bwd_orig
     rows, starts, fwd, _, params8, s, C, S, ckpt = captured["bwd"]
     gid = captured["binning"].gid_sorted
-    works = {"forward": composite_work(fwd, s, rows.shape[0], C, S),
+    works = {"forward": composite_work(fwd, s, rows.shape[0], C, S,
+                                       tile_starts=starts),
              "backward": composite_work(fwd, s, rows.shape[0], C, S,
                                         backward=True)}
     say_walk(7, "the training view (the forward with checkpoints)",
-             works["backward"], s, rows.shape[0], C, S, True)
+             works["forward"], s, starts, C, S, True)
     ok, summ, _, _ = run_pair(rows, starts, params8, s, C, S)
     say(7, f"forward kernel vs plain at full size ({rows.shape[0]} "
            f"instances, {s.height}x{s.width}): {'ok' if ok else 'FAIL'} "
@@ -1021,12 +1097,14 @@ def phase_train_step(args, scene, init_params, device, smi):
     med["plain backward"] = statistics.median(plain_ms)
     med["autograd rest"] = (med["backward"] - med["backward kernel"]
                             - med["reduction"])
+    passes = forward_pass_ms(stages["forward kernel with checkpoints"])
     idle, busy_ms, wall_ms, top = device_idle_share(stages["step"], 3)
     say(7, f"timing on {smi}, one training step of {n} gaussians "
            f"({rows.shape[0]} instances, {h}x{w}), CUDA events, median of 5: "
            + ", ".join(f"{k} {v:.3f} ms" for k, v in med.items())
            + f" (plain backward: median of 3) | peak memory {peak_gb:.2f} "
            f"GiB")
+    say_passes(7, smi, passes, med["forward kernel with checkpoints"])
     say(7, f"torch.profiler over 3 steps: device busy {busy_ms:.3f} ms of "
            f"{wall_ms:.3f} ms per step, idle share {idle:.4f} | by device "
            f"time per step: "
@@ -1035,23 +1113,88 @@ def phase_train_step(args, scene, init_params, device, smi):
 
 
 # ------------------------------------------------------- compositor bounds
-def say_walk(phase, label, work, settings, n_rows, C, S, checkpoints):
-    """The walk per tile on one view, and what each compositor takes at
-    its launch there: registers, shared memory, spills, resident CTAs per
-    SM, and its grid (the forward's instance with ``checkpoints`` or
-    without)."""
-    from gslidar_tpu_torch.kernels import kernel_resources
-    from gslidar_tpu_torch.raster.composite_fwd import max_chunks
+def forward_pass_ms(fn, n=10, tries=3):
+    """The forward kernel's passes in n calls of fn (one forward each),
+    from ``torch.profiler``'s device events over n + 1 calls in one
+    session, the first left out (the profiler can miss launches at its
+    start): per pass, its device time summed over its launches in one
+    forward, median of n, and its launches; and the device span of one
+    forward's passes, from the first start to the last end (median of n).
+    The session is taken again, up to ``tries`` times, until it holds the
+    n forwards' launches whole and in order."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from gslidar_tpu_torch.kernels import FWD_PASSES
+    from gslidar_tpu_torch.raster.composite_fwd import WINDOW_ENDS
+    # one forward's launches: the product and the scan pass once per
+    # window of batches, then the blend and the merge
+    order = ["product", "scan"] * (len(WINDOW_ENDS) + 1) + ["blend", "merge"]
+    k = len(order)
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n + 1):
+                fn()
+            torch.cuda.synchronize()
+        ev = sorted((e.time_range.start, e.time_range.end, p)
+                    for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    for p in FWD_PASSES if f"fwd_{p}_kernel" in e.name)
+        groups = [ev[len(ev) - (i + 1) * k:len(ev) - i * k]
+                  for i in range(n)]
+        if len(ev) >= n * k and all([q for _, _, q in g] == order
+                                    for g in groups):
+            break
+    else:
+        raise RuntimeError(f"torch.profiler caught {len(ev)} launches of "
+                           f"the forward's passes, not the last {n} "
+                           f"forwards' {k} each in order")
+    ms = {p: statistics.median(sum(b - a for a, b, q in g if q == p) / 1e3
+                               for g in groups) for p in FWD_PASSES}
+    span = statistics.median((g[-1][1] - g[0][0]) / 1e3 for g in groups)
+    return ms, {p: order.count(p) for p in FWD_PASSES}, span
+
+
+def say_passes(phase, smi, passes, whole_ms):
+    ms, launches, span = passes
+    say(phase, f"forward passes on {smi}, device time per forward "
+               f"(torch.profiler, median of 10): "
+               + ", ".join(f"{p} {v:.3f} ms in {launches[p]} launches"
+                           for p, v in ms.items())
+        + f"; their sum {sum(ms.values()):.3f} ms, their device span "
+          f"{span:.3f} ms; the whole forward {whole_ms:.3f} ms by CUDA "
+          f"events")
+
+
+def say_walk(phase, label, work, settings, tile_starts, C, S, checkpoints):
+    """The walk per tile on one view, and what each compositor (each pass
+    of the forward) takes at its launch there: registers, shared memory,
+    spills, resident CTAs per SM, and its grid (the forward's merge with
+    the checkpoint stores when ``checkpoints``, else without)."""
+    from gslidar_tpu_torch.kernels import COMPOSITORS, kernel_resources
+    from gslidar_tpu_torch.raster.composite_fwd import (WINDOW_ENDS,
+                                                        chunk_offsets,
+                                                        max_chunks)
     res = {k: kernel_resources(k, settings.tile_h, settings.tile_w, C, S,
                                checkpoints)
-           for k in ("composite_fwd", "composite_bwd")}
-    grid = {"composite_fwd": settings.num_tiles,
-            "composite_bwd": max_chunks(n_rows, settings)}
+           for k in COMPOSITORS}
+    chunks = max_chunks(int(tile_starts[-1]), settings)
+    n = settings.num_tiles
+    lens = [b - a for a, b in zip((0,) + WINDOW_ENDS, WINDOW_ENDS)]
+    grid = {k: (n if k.endswith(("scan", "merge")) else chunks)
+            for k in COMPOSITORS}
+    grid["composite_fwd.product"] = (
+        f"{' + '.join(f'{n} x {w}' for w in lens)} + {chunks}")
+    grid["composite_fwd.scan"] = f"{len(WINDOW_ENDS) + 1} x {n}"
+    batches = int(chunk_offsets(tile_starts, settings)[-1])
     say(phase, f"walk on {label}: instances walked per tile max "
                f"{work.tile_walked_max}, mean {work.tile_walked_mean:.1f}; "
                f"the heaviest tenth of the {settings.num_tiles} tiles holds "
                f"{work.heavy_tenth_share:.3f} of the walked pairs; "
-               f"{work.walked_chunks} staging batches walked | "
+               f"{work.walked_chunks} staging batches walked (the blend "
+               f"pass and the backward) of {batches} held, "
+               f"{work.product_chunks} taken by the product pass | "
                + "; ".join(f"{k}: grid {grid[k]} CTAs of "
                            f"{settings.tile_pixels} threads, "
                            f"{r['registers']} registers/thread, static smem "
@@ -1069,7 +1212,11 @@ def say_bounds(phase, label, work, clock_hz, ms):
                f"ms) | kernel {ms:.3f} ms = {ms / b.ms:.1f}x the bound | "
                f"pairs needed {work.needed_pairs}, walked "
                f"{work.walked_pairs}, walked/needed "
-               f"{work.walked_over_needed:.3f} | instances needed "
+               f"{work.walked_over_needed:.3f}"
+               + (f", the forward's product pass {work.product_pairs} "
+                  f"({work.product_pairs / max(work.walked_pairs, 1):.3f}"
+                  f"x the walked)" if work.product_pairs else "")
+               + f" | instances needed "
                f"{work.needed_instances}, pixels accepting "
                f"{work.accepting_pixels} | {work.n_bytes} bytes, "
                f"{work.fp32} fp32 ops, {work.mufu} MUFU ops")

@@ -23,10 +23,12 @@
 // a training view launches ~470 working CTAs. The forward kernel leaves a
 // checkpoint of every pixel's running state at the start of each batch
 // (composite_fwd.cu, composite_common.cuh); a CTA starts from its chunk's
-// checkpoint: T, bit for bit the forward's, so with the shared intersect()
-// and --fmad=false every `ok`, `accept` and median decision is the
-// forward's; and the prefix P of w*q at the chunk's start, formed from the
-// checkpoint's running sums and the pixel's cotangents. Every
+// checkpoint: T, bit for bit the T the forward's blend pass started the
+// batch from (its scan's product of the batch products before it), so
+// with the shared intersect() and --fmad=false every `ok`, `accept` and
+// median decision is the forward's; and the prefix P of w*q at the
+// chunk's start, formed from the checkpoint's running sums and the
+// pixel's cotangents. Every
 // back-to-front suffix sum is total - inclusive prefix (pallas_bwd.py:
 // 219-263): the cotangents are constant per pixel, so all of them collapse
 // into that one running prefix against a qtot built from the forward's
@@ -194,20 +196,6 @@ __device__ __forceinline__ void finish_row(const float* r, const float* R,
 
 // instances whose reduced terms are kept before their rows are finished
 constexpr int FIN = 256;
-
-// The tile that owns chunk `chunk`: the last t with chunk_off[t] <= chunk
-// (tiles with no instances own no chunk and share their successor's
-// offset).
-__device__ __forceinline__ int chunk_tile(const int* __restrict__ chunk_off,
-                                          int n_tiles, int chunk) {
-  int lo = 0, hi = n_tiles - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (__ldg(chunk_off + mid) <= chunk) lo = mid;
-    else hi = mid - 1;
-  }
-  return lo;
-}
 
 template <int MAX_THREADS, int MIN_CTAS>
 __global__ void __launch_bounds__(MAX_THREADS, MIN_CTAS)

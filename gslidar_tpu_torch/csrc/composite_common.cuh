@@ -35,8 +35,12 @@ enum Field {
 // state before the batch, [CKPT_BASE + C][tile pixels] floats. Fields: T,
 // the C color sums, then, counted from the end of the colors, the three
 // normal sums, sum w*d, sum w*d^2, sum w, M1 and M2. The S features are
-// left out: they do not feed back into alpha. A tile's batches follow one
-// another from chunk_off[tile], the exclusive prefix sum over the tiles of
+// left out: they do not feed back into alpha. T is the forward's scan,
+// the product of the batch products before this batch (1 or 0 times
+// P_0 * P_1 * ..., each P_b the serial product of (1 - alpha) over batch
+// b's `ok` instances); the sums are the forward's merge of the batches'
+// local sums before this batch. A tile's batches follow one another from
+// chunk_off[tile], the exclusive prefix sum over the tiles of
 // ceil(instances / tile pixels).
 constexpr int CKPT_BASE = 9;
 enum CkptHead { CK_T = 0, CK_COLOR = 1 };
@@ -105,7 +109,10 @@ __device__ __forceinline__ void splat_normal(const float* r, float& c1,
 }
 
 // Stages instance row r (D = 10 + NB floats) into column s of the
-// [field][B] staging area: the per-instance terms each pixel reads.
+// [field][B] staging area: the per-instance terms each pixel reads. With
+// SHADE false only the fields intersect() reads (F_AX .. F_OPA) are
+// formed and stored, by the same operations.
+template <bool SHADE = true>
 __device__ __forceinline__ void stage_instance(const float* r, float* s,
                                                int B, int NB, float fW,
                                                float fH, float tcx,
@@ -131,6 +138,7 @@ __device__ __forceinline__ void stage_instance(const float* r, float* s,
   s[F_CY * B] = cy;
   s[F_RC * B] = r_c;
   s[F_OPA * B] = r[9];
+  if (!SHADE) return;
   s[F_N1 * B] = c1 * si;
   s[F_N2 * B] = c2 * si;
   s[F_N3 * B] = c3 * si;
@@ -169,6 +177,20 @@ __device__ __forceinline__ Hit intersect(const float* s, int B,
   h.alpha = h.a_raw > MAX_ALPHA ? MAX_ALPHA : h.a_raw;
   h.ok = p3ok && h.d >= prm.near && h.d <= prm.far && h.alpha >= ALPHA_EPS;
   return h;
+}
+
+// The tile that owns staging batch `chunk`: the last t with chunk_off[t] <=
+// chunk (tiles with no instances own no batch and share their successor's
+// offset).
+__device__ __forceinline__ int chunk_tile(const int* __restrict__ chunk_off,
+                                          int n_tiles, int chunk) {
+  int lo = 0, hi = n_tiles - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (__ldg(chunk_off + mid) <= chunk) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
 }
 
 // What `kernel` takes at a launch of `threads` threads with `smem` bytes of

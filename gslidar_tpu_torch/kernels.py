@@ -53,12 +53,15 @@ _F = ctypes.c_float
 SIGNATURES = {
     "gslidar_composite_fwd": [
         _I, _P, _I, _P,                  # device, rows, D, tile_starts
+        _P, _I,                          # chunk_off, grid
         _I, _I, _I, _I, _I, _I, _I, _I,  # n_tiles, tiles_x, tile_h, tile_w,
                                          # H, W, C, S
         _F, _F, _F, _F, _F, _F, _F, _F,  # near, far, vmin, vmax, hmin,
                                          # hmax, wrap_w, wrap_inv
         _I, _I,                          # compute_distortion, contrib
-        _P, _P,                          # chunk_off, ckpt (or null)
+        _I, _P,                          # n_ends, window_ends (host int[])
+        _P, _P, _P, _P,                  # prod, T_start, walked, part
+        _P,                              # ckpt (or null)
         _P, _P, _P, _P,                  # color, feat, depth, misc
         _P,                              # stream
     ],
@@ -76,8 +79,8 @@ SIGNATURES = {
         _P, _P,                          # grad, stream
     ],
     "gslidar_composite_fwd_info": [
-        _I, _I, _I, _I, _I, _I, _P,      # device, tile_h, tile_w, C, S,
-                                         # checkpoints, out
+        _I, _I, _I, _I, _I, _I, _I, _P,  # device, pass, tile_h, tile_w, C,
+                                         # S, checkpoints, out
     ],
     "gslidar_composite_bwd_info": [
         _I, _I, _I, _I, _I, _P,          # device, tile_h, tile_w, C, S, out
@@ -200,23 +203,35 @@ RESOURCE_FIELDS = ("registers", "static_smem", "local_bytes",
                    "dynamic_smem", "ctas_per_sm")
 
 
+# the forward compositor's passes (csrc/composite_fwd.cu: the product and
+# scan passes run once per window of batches, then the blend and the
+# merge); pass p's kernel is fwd_<p>_kernel
+FWD_PASSES = ("product", "scan", "blend", "merge")
+COMPOSITORS = (*(f"composite_fwd.{p}" for p in FWD_PASSES), "composite_bwd")
+
+
 def kernel_resources(kernel: str, tile_h: int, tile_w: int, C: int, S: int,
                      checkpoints: bool = False, device: int = 0) -> dict:
-    """What compositor ``kernel`` ("composite_fwd" or "composite_bwd")
-    takes at a launch for tile_h x tile_w tiles: registers per thread,
-    static shared memory and local (spill) bytes per thread
-    (``cudaFuncGetAttributes``), the launch's dynamic shared memory, and
-    the CTAs resident per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).
-    For the forward, ``checkpoints`` picks the instance that stores them
-    (training) over the one that does not (serving)."""
+    """What compositor ``kernel`` (one of ``COMPOSITORS``: a pass of the
+    forward, "composite_fwd.<pass>", or "composite_bwd") takes at a launch
+    for tile_h x tile_w tiles: registers per thread, static shared memory
+    and local (spill) bytes per thread (``cudaFuncGetAttributes``), the
+    launch's dynamic shared memory, and the CTAs resident per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``). For the forward's
+    merge, ``checkpoints`` picks the instance that stores them (training)
+    over the one that does not (serving)."""
+    if kernel not in COMPOSITORS:
+        raise ValueError(f"unknown compositor {kernel!r}, not one of "
+                         f"{COMPOSITORS}")
     lib = load_library()
     out = (ctypes.c_int * len(RESOURCE_FIELDS))()
-    if kernel == "composite_fwd":
-        err = lib.gslidar_composite_fwd_info(device, tile_h, tile_w, C, S,
-                                             int(checkpoints), out)
-    else:
+    if kernel == "composite_bwd":
         err = lib.gslidar_composite_bwd_info(device, tile_h, tile_w, C, S,
                                              out)
+    else:
+        err = lib.gslidar_composite_fwd_info(
+            device, FWD_PASSES.index(kernel.split(".")[1]), tile_h, tile_w,
+            C, S, int(checkpoints), out)
     if err != 0:
         raise RuntimeError(f"{kernel} resource query failed: CUDA error {err}")
     return dict(zip(RESOURCE_FIELDS, out))

@@ -26,11 +26,19 @@ count is a least count and the bound a least time. Where the work depends
 on the data, it is what this run's data needs:
 
 * *needed* (instance, pixel) pairs: the sum over pixels of n_contrib (misc
-  slot 1, composite_fwd.cu:166), since each pixel must test every instance
-  up to its last accepted one; the bound uses these;
-* *walked* pairs: the sum over tiles of the instances walked (misc slot 5,
-  composite_fwd.cu:170) times the tile's pixels, what the kernels do; the
-  ratio walked / needed is what the tile-wide early exit costs.
+  slot 1), since each pixel must test every instance up to its last
+  accepted one; the bound uses these;
+* *walked* pairs: the sum over tiles of the instances walked (misc slot 5)
+  times the tile's pixels, what the forward's blend pass and the backward
+  kernel do; the ratio walked / needed is what the tile-wide early exit
+  costs;
+* *product* pairs: what the forward's product pass walks, the instances
+  of each tile up to the end of the window of batches in which its walk
+  ended (``composite_fwd.WINDOW_ENDS``; the whole list where the walk ran
+  to its end) times the tile's pixels: it forms each window's products
+  before the scan finds where the walk ends. Like the walked pairs they
+  are a cost of the design, not work the function must do, and the bound
+  leaves them out.
 """
 
 from __future__ import annotations
@@ -40,21 +48,23 @@ from typing import NamedTuple
 
 import torch
 
+from gslidar_tpu_torch.raster.composite_fwd import WINDOW_ENDS
+
 HBM_BYTES_PER_S = 3.35e12
 SMS = 132
 BOOST_CLOCK_HZ = 1.98e9          # the published maximum SM clock
 ISSUE_PER_SM_CLOCK = {"fp32": 128, "mufu": 16, "shfl": 32}
 
-# per pixel: its ray (composite_common.cuh:44-59; sinf/cosf uncounted)
+# per pixel: its ray (composite_common.cuh pixel_ray; sinf/cosf uncounted)
 RAY_FP32, RAY_MUFU = 8, 2
 # per staged instance: splat centre, normal and the three cross products
-# (composite_common.cuh:61-126)
+# (composite_common.cuh splat_centre, splat_normal, stage_instance)
 STAGE_FP32, STAGE_MUFU = 73, 7
-# per (instance, pixel) pair: the intersection (composite_common.cuh:
-# 136-160)
+# per (instance, pixel) pair: the intersection (composite_common.cuh
+# intersect)
 INTERSECT_FP32, INTERSECT_MUFU = 29, 2
-# per accepted pair of the forward: blend, 14 + 2 (C + S) (composite_fwd
-# .cu:117-134), and the distortion moments (:135-143)
+# per accepted pair of the forward: blend, 14 + 2 (C + S), and the
+# distortion moments (composite_fwd.cu fwd_blend_kernel's walk)
 FWD_ACCEPT_FP32 = 14
 FWD_DIST_FP32, FWD_DIST_MUFU = 16, 1
 # per accepted pair of the backward, 3d branch: 51 + 2 C + (C + S + 3) and
@@ -169,6 +179,10 @@ class CompositeWork(NamedTuple):
     tile_walked_mean: float = 0.0
     heavy_tenth_share: float = 0.0
     walked_chunks: int = 0
+    # the forward's product pass: the pairs and the staging batches it
+    # walks (0 when the tile ranges were not given)
+    product_pairs: int = 0
+    product_chunks: int = 0
 
     @property
     def walked_over_needed(self) -> float:
@@ -191,17 +205,31 @@ def _tiled(plane: torch.Tensor, settings) -> torch.Tensor:
 
 
 def composite_work(fwd, settings, n_rows: int, C: int, S: int,
-                   backward: bool = False) -> CompositeWork:
+                   backward: bool = False,
+                   tile_starts: torch.Tensor | None = None) -> CompositeWork:
     """The work of the forward (or, with ``backward``, the backward)
     compositing kernel on the inputs that gave the forward outputs
-    ``fwd`` (a CompositeOut with n_contrib and the walked counts)."""
-    n_contrib = _tiled(fwd.misc[1].to(torch.float64), settings)
-    inside = _tiled(torch.ones_like(fwd.misc[1], dtype=torch.float64),
+    ``fwd`` (a CompositeOut with n_contrib and the walked counts); with
+    the tile ranges ``tile_starts`` ([n_tiles + 1]), also the pairs the
+    forward's product pass walks."""
+    misc = fwd.misc.detach()
+    n_contrib = _tiled(misc[1].to(torch.float64), settings)
+    inside = _tiled(torch.ones_like(misc[1], dtype=torch.float64),
                     settings)
-    walked = fwd.misc[5, ::settings.tile_h, ::settings.tile_w].reshape(-1)
+    walked = misc[5, ::settings.tile_h, ::settings.tile_w].reshape(-1)
     needed_pairs = int(n_contrib.sum())
     tile_pairs = walked.to(torch.float64) * inside.sum(1)
     walked_pairs = int(tile_pairs.sum())
+    product_pairs = product_chunks = 0
+    if tile_starts is not None:
+        counts = (tile_starts[1:] - tile_starts[:-1]).to(walked.device,
+                                                          torch.int64)
+        batches = product_batches(walked.to(torch.int64), counts,
+                                  settings.tile_h * settings.tile_w)
+        inst = torch.minimum(counts, batches * settings.tile_h
+                             * settings.tile_w)
+        product_pairs = int((inst.to(torch.float64) * inside.sum(1)).sum())
+        product_chunks = int(batches.sum())
     heavy = tile_pairs.sort(descending=True).values[
         :-(-tile_pairs.numel() // 10)]
     pix = settings.tile_h * settings.tile_w
@@ -245,4 +273,24 @@ def composite_work(fwd, settings, n_rows: int, C: int, S: int,
                          heavy_tenth_share=float(heavy.sum())
                          / max(walked_pairs, 1),
                          walked_chunks=int(((walked_i + pix - 1)
-                                            // pix).sum()))
+                                            // pix).sum()),
+                         product_pairs=product_pairs,
+                         product_chunks=product_chunks)
+
+
+def product_batches(walked: torch.Tensor, counts: torch.Tensor, B: int,
+                    window_ends=WINDOW_ENDS) -> torch.Tensor:
+    """Per tile, the staging batches the forward's product pass walks,
+    from the instances walked and held: the tile's whole list where the
+    walk ran to its end; else up to the end of the window that holds the
+    batch where the vote stopped it, within the list."""
+    n_b = (counts + B - 1) // B
+    stop = walked // B                 # the batch the vote stopped at
+    # the window ends, then the last window's: the end of the list
+    ends = torch.cat([torch.tensor(window_ends, dtype=torch.int64,
+                                   device=walked.device).expand(len(n_b), -1),
+                      n_b[:, None]], 1)
+    k = torch.searchsorted(ends[:, :-1].contiguous(), stop[:, None],
+                           right=True)
+    hi = torch.gather(ends, 1, k)[:, 0]
+    return torch.where(walked < counts, torch.minimum(hi, n_b), n_b)

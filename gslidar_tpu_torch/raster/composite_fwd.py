@@ -9,18 +9,24 @@ planes (``CompositeOut``).
 
 ``composite_forward`` is the wrapper: CPU tensors go to the plain version,
 CUDA tensors to the kernel in ``csrc/composite_fwd.cu``, and anything else
-raises. ``composite_forward_reference`` is the plain version, written to
-walk instances exactly as the kernel does: in per-tile batches of one
-instance per tile pixel, with the block's early exit between batches.
-Within a batch it is vectorized over tiles x instances x pixels, with a
-cumprod for the transmittance, and runs on the CPU and on the card. It
-performs the kernel's per-instance and per-pixel arithmetic in the same
-order on float32 device scalars, so the two agree to rounding in the
-transmittance products and the channel sums.
+raises. The kernel runs in four passes: each batch's transmittance
+product, a per-tile scan of those products that also ends the walk, the
+compositing of each walked batch from its scan T, and an in-order merge
+of the batches' sums. ``composite_forward_reference`` is
+the plain version, written to walk instances as the kernel does: in
+per-tile batches of one instance per tile pixel, with the block's early
+exit between batches, and T carried from batch to batch as T times the
+batch's product, as the kernel's scan carries it. Within a batch it is
+vectorized over tiles x instances x pixels, with a cumprod for the
+transmittance, and runs on the CPU and on the card. It performs the
+kernel's per-instance and per-pixel arithmetic in the same order on
+float32 device scalars, so the two agree to rounding in the transmittance
+products inside a batch and in the channel sums.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -33,6 +39,10 @@ from gslidar_tpu_torch.raster.settings import (ALPHA_EPS, FAR_N,
 PAYLOAD_BASE = 10    # 9 T columns + opacity, then C colors and S features
 MAX_BLEND = 16       # C + S the kernel accumulates (csrc MAX_BLEND)
 CKPT_BASE = 9        # checkpoint fields besides the C colors (csrc CKPT_BASE)
+# the ends of the windows of staging batches the kernel's product and scan
+# passes take in rounds, the last window running to the end of the list
+# (csrc/composite_fwd.cu)
+WINDOW_ENDS = (4, 16, 64)
 
 
 class CompositeOut(NamedTuple):
@@ -404,6 +414,10 @@ def _check_checkpoints(ckpt: Checkpoints, rows, settings: RasterSettings,
                          f"{rows.device}")
 
 
+PART_BASE = 12       # a batch's local sums besides the C + S channels
+                     # (csrc Part)
+
+
 def composite_forward(rows: torch.Tensor, tile_starts: torch.Tensor, params,
                       settings: RasterSettings, C: int, S: int,
                       ckpt: Checkpoints | None = None) -> CompositeOut:
@@ -412,8 +426,8 @@ def composite_forward(rows: torch.Tensor, tile_starts: torch.Tensor, params,
     With ``ckpt`` (``new_checkpoints``), the walk also writes its
     checkpoints there, for the backward kernel; the outputs are the same
     bit for bit. CPU tensors run the plain version; CUDA tensors launch
-    the kernel on the current stream (``composite_forward.launches``
-    counts those launches); any other device raises.
+    the kernel's passes on the current stream (``composite_forward.launches``
+    counts those forwards); any other device raises.
     """
     _check_inputs(rows, tile_starts, settings, C, S)
     if ckpt is not None:
@@ -427,29 +441,46 @@ def composite_forward(rows: torch.Tensor, tile_starts: torch.Tensor, params,
     from gslidar_tpu_torch.kernels import load_library
     lib = load_library()
     H, W = settings.height, settings.width
+    B = settings.tile_pixels
     empty = dict(dtype=torch.float32, device=rows.device)
-    color = torch.empty(C, H, W, **empty)
-    feat = torch.empty(S + 3, H, W, **empty)
-    depth = torch.empty(4, H, W, **empty)
-    misc = torch.empty(8, H, W, **empty)
-    ck_off, ck_state = ((None, None) if ckpt is None else
-                        (ckpt.chunk_off.data_ptr(), ckpt.state.data_ptr()))
+    out = CompositeOut(color=torch.empty(C, H, W, **empty),
+                       feature=torch.empty(S + 3, H, W, **empty),
+                       depth=torch.empty(4, H, W, **empty),
+                       misc=torch.empty(8, H, W, **empty))
+    # the passes' scratch, in one allocation: one slot per possible (tile,
+    # staging batch), sized on the host with no sync (csrc/composite_fwd.cu):
+    # each batch's local sums (a row of PART_BASE + C + S floats per pixel,
+    # padded to 16 bytes), its transmittance product and its T at the start
+    # (the scan); and the staging batches each tile walked
+    grid = max_chunks(rows.shape[0], settings)
+    row = (PART_BASE + C + S + 3) // 4 * 4
+    scratch = torch.empty(grid * B * (row + 2), **empty)
+    part = scratch[:grid * B * row]
+    prod = scratch[grid * B * row:grid * B * (row + 1)]
+    T_start = scratch[grid * B * (row + 1):]
+    walked = torch.empty(settings.num_tiles, dtype=torch.int32,
+                         device=rows.device)
+    chunk_off = (chunk_offsets(tile_starts, settings) if ckpt is None
+                 else ckpt.chunk_off)
+    ends = (ctypes.c_int * len(WINDOW_ENDS))(*WINDOW_ENDS)
     dev = rows.device.index if rows.device.index is not None \
         else torch.cuda.current_device()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gslidar_composite_fwd(
             dev, rows.data_ptr(), rows.shape[1], tile_starts.data_ptr(),
-            settings.num_tiles, settings.tiles_x, settings.tile_h,
-            settings.tile_w, H, W, C, S, *params,
+            chunk_off.data_ptr(), grid, settings.num_tiles, settings.tiles_x,
+            settings.tile_h, settings.tile_w, H, W, C, S, *params,
             int(settings.compute_distortion), int(settings.compute_contrib),
-            ck_off, ck_state, color.data_ptr(), feat.data_ptr(),
-            depth.data_ptr(), misc.data_ptr(), stream)
+            len(WINDOW_ENDS), ends, prod.data_ptr(),
+            T_start.data_ptr(), walked.data_ptr(), part.data_ptr(),
+            None if ckpt is None else ckpt.state.data_ptr(),
+            *(x.data_ptr() for x in out), stream)
     if err != 0:
         raise RuntimeError(f"composite_fwd kernel launch failed: CUDA error "
                            f"{err}")
     composite_forward.launches += 1
-    return CompositeOut(color=color, feature=feat, depth=depth, misc=misc)
+    return out
 
 
 composite_forward.launches = 0

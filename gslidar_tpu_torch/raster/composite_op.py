@@ -8,10 +8,13 @@ differentiated; the binning inputs set the instance order, which has no
 gradient (pallas_op.py:100-103).
 
 * forward: ``bin_gaussians`` (one host sync, an exact-size instance list,
-  one payload gather), then the forward compositing kernel, which, when
-  the rows will need a gradient, also leaves its checkpoints (each
-  pixel's running state at the start of every staging batch) for the
-  backward;
+  one payload gather), then the forward compositing kernel, in four
+  passes that split each tile's walk into one CTA per staging batch (the
+  batches' transmittance products, a per-tile scan of them, each walked
+  batch composited from its scan T, an in-order merge of the batches'
+  sums). When the rows will need a gradient, the merge also leaves the
+  checkpoints (each pixel's running state at the start of every staging
+  batch, T being the scan's) for the backward;
 * backward: the backward compositing kernel, started per (tile, batch)
   from those checkpoints, writes one gradient row per
   sorted instance, and the per-gaussian reduction sums each gaussian's

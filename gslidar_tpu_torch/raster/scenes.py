@@ -53,6 +53,44 @@ def deep_tile_scene(rng, P=3000, S=2):
     return sc
 
 
+def _toward_tile(phi, theta, r):
+    return np.stack([r * np.sin(theta) * np.sin(phi), -r * np.cos(theta),
+                     r * np.sin(theta) * np.cos(phi)], 1).astype(np.float32)
+
+
+def opaque_front_tile_scene(rng, P=11000, S=2, n_opaque=300):
+    """``deep_tile_scene`` with P splats, so that the same tile holds 43
+    staging batches, and n_opaque large, nearly opaque splats at range
+    5.8-6.2 among its front ones: every pixel of the tile falls under the
+    1e-4 floor within its first 2 batches, and the walk must stop there."""
+    sc = deep_tile_scene(rng, P=P, S=S)
+    n = n_opaque
+    r = rng.uniform(5.8, 6.2, n)
+    sc["means"][:n] = _toward_tile(np.radians(6.0) + rng.uniform(-0.1, 0.1, n),
+                                   np.pi / 2 - 0.17
+                                   + rng.uniform(-0.15, 0.15, n), r)
+    sc["scales"][:n] = r[:, None] * rng.uniform(0.1, 0.2, (n, 3))
+    sc["opac"][:n] = rng.uniform(0.9, 0.99, n)
+    return sc
+
+
+def long_tile_scene(rng, P=72000, S=2):
+    """P tiny, faint splats in the view of ``deep_tile_scene``'s tile,
+    thinning out from its left edge to its right, so that the tile holds
+    >= 263 staging batches (the heaviest tile of a 360-degree view of 1M
+    gaussians) and walks all of them: its pixels fall under the 1e-4 floor
+    at positions spread over the whole list, and some never do."""
+    sc = deep_tile_scene(rng, P=P, S=S)
+    r = rng.uniform(5, 30, P)
+    phi = np.radians(6.0) - 0.1 + np.minimum(rng.exponential(0.04, P), 0.2)
+    sc.update(means=_toward_tile(phi, np.pi / 2 - 0.17
+                                 + rng.uniform(-0.15, 0.15, P), r),
+              scales=(r[:, None] * rng.uniform(0.003, 0.01, (P, 3))
+                      ).astype(np.float32),
+              opac=rng.uniform(0.02, 0.1, P).astype(np.float32))
+    return sc
+
+
 def port_rows(sc, settings):
     """The sorted payload rows and tile starts of scene ``sc`` (torch
     tensors, on any device) through the port's own preprocess (SH degree

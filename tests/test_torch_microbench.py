@@ -415,6 +415,66 @@ def test_composite_bounds_hand_counted():
     assert many.bound().bound_by == "operations"
 
 
+def test_product_batches_follow_the_windows():
+    """Tiles of 256 pixels: a walk that ran to the end of its list (the
+    product pass walked all of it), and walks the vote stopped at batch 0,
+    2, 3, 5 and 200, each taken to the end of its window within the list:
+    windows [0, 2), [2, 4), [4, 8), ..., [128, end); the kernel's own; and
+    one window, the whole list."""
+    B = 256
+    counts = torch.tensor([10 * B, 43 * B, 43 * B, 43 * B, 6 * B + 5,
+                           300 * B, 3 * B])
+    walked = torch.tensor([10 * B, 0, 2 * B, 3 * B, 5 * B, 200 * B, 3 * B])
+    doubling = (2, 4, 8, 16, 32, 64, 128)
+    assert bounds.product_batches(walked, counts, B, doubling).tolist() == [
+        10, 2, 4, 4, 7, 300, 3]
+    assert bounds.WINDOW_ENDS == (4, 16, 64)
+    assert bounds.product_batches(walked, counts, B).tolist() == [
+        10, 4, 4, 4, 7, 300, 3]
+    assert bounds.product_batches(walked, counts, B, ()).tolist() == [
+        10, 43, 43, 43, 7, 300, 3]
+
+
+def test_composite_work_counts_the_product_pass():
+    """A 30x130 panorama (tiles of 16x16, the bottom row of tiles half
+    outside): the product pass walks, per tile, the instances of the
+    batches ``product_batches`` gives against the tile's pixels inside
+    the image, at least the walked pairs; without the tile ranges it
+    counts none. The opaque tile stops after 2 of its 43 batches and its
+    products stop at 4 (the window [0, 4))."""
+    from gslidar_tpu_torch.raster import composite_fwd as cf
+    from gslidar_tpu_torch.raster.scenes import (deep_tile_scene,
+                                                 opaque_front_tile_scene,
+                                                 port_rows)
+    from gslidar_tpu_torch.raster.settings import RasterSettings
+    ts = RasterSettings(height=30, width=130, vfov=(-20.0, 20.0),
+                        hfov=(-60.0, 60.0), num_extra_features=2)
+    for scene, seed in ((deep_tile_scene, 7), (opaque_front_tile_scene, 11)):
+        sc = {k: torch.as_tensor(v)
+              for k, v in scene(np.random.default_rng(seed)).items()}
+        rows, starts = port_rows(sc, ts)
+        out = cf.composite_forward(rows, starts, cf.make_params(1.0, ts), ts,
+                                   4, 2)
+        w = bounds.composite_work(out, ts, rows.shape[0], 4, 2,
+                                  tile_starts=starts)
+        counts = (starts[1:] - starts[:-1]).long()
+        walked = out.misc[5, ::16, ::16].reshape(-1).long()
+        batches = bounds.product_batches(walked, counts, 256)
+        inside = [min(16, ts.height - 16 * (t // ts.tiles_x))
+                  * min(16, ts.width - 16 * (t % ts.tiles_x))
+                  for t in range(ts.num_tiles)]
+        assert w.product_pairs == sum(
+            min(int(c), 256 * int(b)) * i
+            for c, b, i in zip(counts, batches, inside))
+        assert w.product_chunks == int(batches.sum())
+        assert w.product_pairs >= w.walked_pairs > 0
+        assert bounds.composite_work(out, ts, rows.shape[0], 4,
+                                     2).product_pairs == 0
+    t = int(counts.argmax())
+    assert (int(counts[t]) // 256, int(walked[t]), int(batches[t])) == (
+        42, 512, 4)
+
+
 def test_gather_bound_counts_distinct_rows():
     ids = torch.tensor([3, 3, 7, 0, 7], dtype=torch.int32)
     assert bounds.gather_bytes(10, ids) == 3 * 40 + 5 * 4 + 5 * 40

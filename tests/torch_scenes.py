@@ -9,7 +9,8 @@ which its smoke test on the card uses too.
 """
 
 from gslidar_tpu_torch.raster.scenes import (  # noqa: F401
-    deep_tile_scene, port_rows, splat_scene)
+    deep_tile_scene, long_tile_scene, opaque_front_tile_scene, port_rows,
+    splat_scene)
 
 
 def settings_pair(height=30, width=130, hfov=(-60.0, 60.0), S=2,
