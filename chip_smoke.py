@@ -79,7 +79,11 @@ failing phase raises:
    versions at 64 steps and at 1 step, where the rolls move the block by
    16 (roll1) or 128 (roll8) rows (at 64 steps by a multiple of 256, so
    a wrong roll would go unseen), the bfloat16 rolls also against
-   ``torch.roll`` alone; and the plain versions timed;
+   ``torch.roll`` alone; the plain versions timed; and per chain its
+   launch (``kernels.op_chain_resources``: grid, warps per CTA, the
+   layout's registers per thread, registers, spills, CTAs per SM, SMs
+   reached) and the slope's share of its op bound, chains under half of
+   it flagged (a flag does not fail the run);
 10. the result: the card's nvidia-smi line, one JSON line of the kernels,
    and the last line ``{"ok": true, "device": {...}}``.
 
@@ -112,8 +116,9 @@ checkpoint written to the wrong batch would fail.
 Gather kernel vs plain: bitwise equal (a copy). Op chains vs plain
 (``vpu_ops.check``): float32 mul, fma, select, roll1 and roll8 bit for
 bit on every element (the same IEEE operations: the library is built
-with --fmad=false); float32 exp, div and rsqrt within 1e-5 (each side
-calls its own expf, division and rsqrtf) and bfloat16 within one
+with --fmad=false), and float32 div too (the kernel's division is the
+correctly rounded quotient, as torch's is); float32 exp and rsqrt within
+1e-5 (each side calls its own expf and rsqrtf) and bfloat16 within one
 bfloat16 ulp, each on >= 99.9 % of the elements, since a floor that
 wraps near 1.0 may flip an element; the bfloat16 rolls vs ``torch.roll``
 bit for bit on every element.
@@ -1277,7 +1282,8 @@ def phase_gather(device):
 def phase_op_chains(device, clock_hz):
     """The op-chain entry point, its launches counted; then each of the 16
     chains against its plain version at 1 and 64 steps (``vpu_ops.check``),
-    and the plain versions timed."""
+    the plain versions timed, and each chain's launch and share of its op
+    bound."""
     import torch
     from gslidar_tpu_torch.microbench import vpu_ops as vo
     from gslidar_tpu_torch.microbench.timing import time_ms
@@ -1307,6 +1313,23 @@ def phase_op_chains(device, clock_hz):
                f"{r['op_bound_ns']:.2f} ns), chain of 64 steps "
                f"{r['ms']:.4f} ms (bound {r['bound'].ms:.4f} ms, plain "
                f"{r['plain_ms']:.2f} ms)")
+    under = []
+    for r in rows:
+        res = vo.launch_info(r["case"], getattr(torch, r["dtype"]))
+        share = r["op_bound_ns"] / r["ns_per_op"]
+        # the launch, the host's enqueue and the block in and out
+        fixed = r["ms"] - vo.STEPS * r["ops"] * r["ns_per_op"] * 1e-6
+        if share < 0.5:
+            under.append(f"{r['case']} {r['dtype']}")
+        say(9, f"{r['case']:6s} {r['dtype']:8s}: grid {res['grid']} x "
+               f"{res['cta_warps']} warps, {res['regs_per_thread']} chain "
+               f"registers per thread, {res['registers']} registers, "
+               f"{res['local_bytes']} B spilled, {res['ctas_per_sm']} "
+               f"CTAs/SM, {res['sms']} SMs | share of the op bound "
+               f"{share:.2f}" + ("  << under half" if share < 0.5 else "")
+               + f" | fixed part of the 64-step chain {fixed:.4f} ms")
+    say(9, f"chains under half of their op bound: "
+           f"{', '.join(under) if under else 'none'}")
     f32_exp = next(r for r in rows
                    if r["case"] == "exp" and r["dtype"] == "float32")
     say(9, f"MUFU check: the bound assumes 16 per clock per SM at "

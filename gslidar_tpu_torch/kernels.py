@@ -93,6 +93,9 @@ SIGNATURES = {
         _I, _I, _I, _I,                  # device, dtype, case, steps
         _P, _P, _I, _P,                  # x, out, cols, stream
     ],
+    "gslidar_op_chain_info": [
+        _I, _I, _I, _I, _P,              # device, dtype, case, cols, out
+    ],
 }
 
 
@@ -235,3 +238,24 @@ def kernel_resources(kernel: str, tile_h: int, tile_w: int, C: int, S: int,
     if err != 0:
         raise RuntimeError(f"{kernel} resource query failed: CUDA error {err}")
     return dict(zip(RESOURCE_FIELDS, out))
+
+
+OP_CHAIN_FIELDS = ("grid", "cta_warps", "regs_per_thread", "registers",
+                   "local_bytes", "ctas_per_sm", "sms")
+
+
+def op_chain_resources(dtype_id: int, case_id: int, cols: int,
+                       device: int = 0) -> dict:
+    """The launch of the op chain of (dtype_id, case_id) on a [256, cols]
+    block (``csrc/op_chain.cu``): its grid, warps per CTA, the layout's
+    registers per thread, the registers and local (spill) bytes per thread
+    (``cudaFuncGetAttributes``), the CTAs resident per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the SMs the
+    grid reaches in one wave."""
+    lib = load_library()
+    out = (ctypes.c_int * len(OP_CHAIN_FIELDS))()
+    err = lib.gslidar_op_chain_info(device, dtype_id, case_id, cols, out)
+    if err != 0:
+        raise RuntimeError(f"op-chain resource query failed: CUDA error "
+                           f"{err}")
+    return dict(zip(OP_CHAIN_FIELDS, out))

@@ -125,7 +125,8 @@ def gather_bound(width: int, ids: torch.Tensor) -> Bound:
 
 # ---------------------------------------------------------- op chains
 # per element and op, the instructions each pipe must issue (float32;
-# bfloat16 packs two elements per instruction): csrc/op_chain.cu F32/BF16
+# bfloat16 packs two elements per instruction where sm_90a has the packed
+# form): csrc/op_chain.cu F32/BF16
 CHAIN_OP_ISSUE = {
     "mul": {"fp32": 1},
     "fma": {"fp32": 2},                        # unfused multiply, add
@@ -133,17 +134,35 @@ CHAIN_OP_ISSUE = {
     "exp": {"fp32": 1, "mufu": 1},             # the log2 e scale, ex2
     "div": {"fp32": 1, "mufu": 1},             # v + 1, the reciprocal
     "rsqrt": {"fp32": 1, "mufu": 1},           # v + 1, rsqrt
-    "roll1": {"fp32": 1, "shfl": 1},           # the multiply, the shuffle
-    "roll8": {"fp32": 1, "shfl": 1},
+    # the multiply; and a roll of a 256-row column held by 32 lanes moves
+    # at least one value out of each lane: one shuffle per 8 rows
+    "roll1": {"fp32": 1, "shfl": 1 / 8},
+    "roll8": {"fp32": 1, "shfl": 1 / 8},
 }
-CHAIN_STEP_ISSUE = {"fp32": 2}                 # v - floor(v)
+# v - floor(v), each step: the floor and the subtract
+CHAIN_STEP_ISSUE = {"floor": {"fp32": 1}, "sub": {"fp32": 1}}
+# (op, pipe) whose count per element does not halve in bfloat16, where
+# sm_90a has no packed form (microbench/isa_probe.py): ptxas refuses
+# rcp.approx.ftz.bf16x2, rsqrt.approx.ftz.bf16x2 and cvt.rmi.bf16x2, and
+# takes ex2.approx.ftz.bf16x2 as two MUFU.EX2.BF16, one per half. A lane
+# holds 8 rows in bfloat16 too, so a roll still moves one value out of each
+# lane.
+UNPACKED_BF16 = {("exp", "mufu"), ("div", "mufu"), ("rsqrt", "mufu"),
+                 ("roll1", "shfl"), ("roll8", "shfl"), ("floor", "fp32")}
+
+
+def chain_lanes(op: str, pipe: str, packed: bool) -> int:
+    """Elements one instruction of ``pipe`` takes in ``op`` (a case, or a
+    part of the step's v - floor(v))."""
+    return 2 if packed and (op, pipe) not in UNPACKED_BF16 else 1
 
 
 def chain_op_bound(case: str, elements: int, packed: bool,
                    clock_hz: float) -> Bound:
     """Least time of one full-block op of ``case``."""
-    lanes = 2 if packed else 1
-    return bound(**{pipe: issue_ms(n * elements / lanes, pipe, clock_hz)
+    return bound(**{pipe: issue_ms(n * elements
+                                   / chain_lanes(case, pipe, packed),
+                                   pipe, clock_hz)
                     for pipe, n in CHAIN_OP_ISSUE[case].items()})
 
 
@@ -151,13 +170,15 @@ def chain_bound(case: str, ops_per_step: int, steps: int, elements: int,
                 element_bytes: int, packed: bool, clock_hz: float) -> Bound:
     """Least time of a whole chain: the block in and out, and every op
     and renormalisation of every step."""
-    lanes = 2 if packed else 1
     per_el = {}
     for pipe, n in CHAIN_OP_ISSUE[case].items():
-        per_el[pipe] = per_el.get(pipe, 0) + n * ops_per_step
-    for pipe, n in CHAIN_STEP_ISSUE.items():
-        per_el[pipe] = per_el.get(pipe, 0) + n
-    terms = {pipe: issue_ms(n * steps * elements / lanes, pipe, clock_hz)
+        per_el[pipe] = per_el.get(pipe, 0) + n * ops_per_step / chain_lanes(
+            case, pipe, packed)
+    for op, issue in CHAIN_STEP_ISSUE.items():
+        for pipe, n in issue.items():
+            per_el[pipe] = per_el.get(pipe, 0) + n / chain_lanes(op, pipe,
+                                                                 packed)
+    terms = {pipe: issue_ms(n * steps * elements, pipe, clock_hz)
              for pipe, n in per_el.items()}
     return bound(bytes=bytes_ms(2 * elements * element_bytes), **terms)
 

@@ -3,6 +3,7 @@ version and the microbenchmark entry point (port of
 scripts/microbench_vpu_ops.py::make_case's Pallas kernel).
 
     python -m gslidar_tpu_torch.microbench.vpu_ops [--device cuda|cpu]
+        [--reps N] [--cols C]
 
 A chain applies one op ``ops_per_step`` times and then ``v - floor(v)``,
 for ``steps`` iterations, to a [256, 512] block in float32 or bfloat16.
@@ -19,6 +20,10 @@ nanoseconds and a launch microseconds, so it times each chain at
 ``STEPS`` (64, the script's function) and ``STEPS_HI`` (512) steps and
 reports the slope between the two, beside the least time of one op
 (``bounds.chain_op_bound``). On the CPU it times the plain version.
+``--cols`` widens the block (the script's 512 by default): a wider block
+gives each of the card's schedulers more independent chains, so a chain
+whose slope per element falls with the width was held by latency, not by
+its instructions' issue.
 """
 
 from __future__ import annotations
@@ -63,8 +68,11 @@ _DTYPE_ID = {torch.float32: 0, torch.bfloat16: 1}
 # the same IEEE operations; within ATOL_F32 where each calls its own expf,
 # division or rsqrtf, and bfloat16 within one bfloat16 ulp, each of these
 # on MIN_AGREE of the elements, since a floor that wraps near 1.0 may flip
-# an element.
+# an element. On the card the kernel's division is the IEEE quotient, as
+# torch's is, so there float32 div is held bit for bit too (CARD_EXACT_F32;
+# on the CPU the plain version is held against XLA's CPU division).
 EXACT_F32 = ("mul", "fma", "select", "roll1", "roll8")
+CARD_EXACT_F32 = EXACT_F32 + ("div",)
 ATOL_F32 = 1e-5
 MIN_AGREE = 0.999
 # the step counts at which a chain is held against its plain version: the
@@ -81,21 +89,28 @@ def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
     return torch.ldexp(torch.ones_like(v, dtype=torch.float32), e - 8)
 
 
+def exact_f32(case: str, on_card: bool = False) -> bool:
+    """Whether the float32 chain of ``case`` is held bit for bit."""
+    return case in (CARD_EXACT_F32 if on_card else EXACT_F32)
+
+
 def agreement(got: torch.Tensor, want: torch.Tensor, case: str) -> float:
-    """Share of the elements of got within the chain's bar of want."""
+    """Share of the elements of got within the chain's bar of want (the
+    card's bar where got lies on the card)."""
     d = (got.float() - want.float()).abs()
     if want.dtype == torch.bfloat16:
         ok = d <= bf16_ulp(want)
-    elif case in EXACT_F32:
+    elif exact_f32(case, got.is_cuda):
         ok = d == 0
     else:
         ok = d <= ATOL_F32
     return float(ok.float().mean())
 
 
-def required_agreement(case: str, dtype: torch.dtype) -> float:
+def required_agreement(case: str, dtype: torch.dtype,
+                       on_card: bool = False) -> float:
     """The share of the elements that must meet the chain's bar."""
-    return 1.0 if dtype == torch.float32 and case in EXACT_F32 \
+    return 1.0 if dtype == torch.float32 and exact_f32(case, on_card) \
         else MIN_AGREE
 
 
@@ -123,7 +138,7 @@ def check(x: torch.Tensor, case: str) -> list[dict]:
                  and bool(torch.isfinite(got).all()))
         want = op_chain_reference(x, case, steps)
         shares = [(f"plain, {at}", agreement(got, want, case),
-                   required_agreement(case, x.dtype), want)]
+                   required_agreement(case, x.dtype, x.is_cuda), want)]
         if x.dtype == torch.bfloat16 and case in ROLL_BY:
             rolled = torch.roll(x, roll_rows(case, steps), 0)
             shares.append((f"torch.roll by {roll_rows(case, steps)} rows, "
@@ -138,9 +153,10 @@ def check(x: torch.Tensor, case: str) -> list[dict]:
     return out
 
 
-def base_block(device, dtype=torch.float32) -> torch.Tensor:
-    """The script's seeded block: uniform(0.25, 0.75, (256, 512))."""
-    base = np.random.default_rng(SEED).uniform(0.25, 0.75, (SUB, LANE))
+def base_block(device, dtype=torch.float32, cols=LANE) -> torch.Tensor:
+    """The script's seeded block: uniform(0.25, 0.75, (256, cols)), cols
+    512 in the script."""
+    base = np.random.default_rng(SEED).uniform(0.25, 0.75, (SUB, cols))
     return torch.from_numpy(base.astype(np.float32)).to(device, dtype)
 
 
@@ -190,10 +206,10 @@ def op_chain(x: torch.Tensor, case: str, steps: int = STEPS) -> torch.Tensor:
     dev = x.device.index if x.device.index is not None \
         else torch.cuda.current_device()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
         err = lib.gslidar_op_chain(dev, _DTYPE_ID[x.dtype], _CASE_ID[case],
                                    steps, x.data_ptr(), out.data_ptr(),
-                                   x.shape[1], stream)
+                                   x.shape[1],
+                                   torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"op_chain kernel launch failed: CUDA error {err}")
     op_chain.launches += 1
@@ -207,25 +223,34 @@ def _median_ms(fn, device, reps):
     return statistics.median(time_ms(fn, device) for _ in range(reps))
 
 
-def run(device, reps=REPS, steps_hi=STEPS_HI):
-    """Time every case in both types. Returns one dict per (case, dtype):
-    ms at ``STEPS`` and ``steps_hi`` (median of reps after a warm-up),
-    the slope in ns per full-block op, and on the card the bounds of one
-    op and of the chain at ``STEPS`` (at the card's maximum SM clock)."""
+def slope(x, case, reps=REPS, steps_hi=STEPS_HI):
+    """ms of the chain at ``STEPS`` and ``steps_hi`` steps (median of reps
+    after a warm-up) and the slope between them in ns per full-block
+    op."""
+    ops = CASES[case][1]
+    lo = lambda: op_chain(x, case, STEPS)                  # noqa: E731
+    hi = lambda: op_chain(x, case, steps_hi)               # noqa: E731
+    lo()
+    hi()
+    ms_lo = _median_ms(lo, x.device, reps)
+    ms_hi = _median_ms(hi, x.device, reps)
+    return ms_lo, ms_hi, (ms_hi - ms_lo) * 1e6 / ((steps_hi - STEPS) * ops)
+
+
+def run(device, reps=REPS, steps_hi=STEPS_HI, cols=LANE):
+    """Time every case in both types on a [256, cols] block. Returns one
+    dict per (case, dtype): ms at ``STEPS`` and ``steps_hi`` (median of
+    reps after a warm-up), the slope in ns per full-block op, and on the
+    card the bounds of one op and of the chain at ``STEPS`` (at the card's
+    maximum SM clock)."""
     device = torch.device(device)
     clock_hz = (bounds.max_sm_clock_hz() if device.type == "cuda"
                 else None)
     rows = []
     for case, (_, ops) in CASES.items():
         for dtype in DTYPES:
-            x = base_block(device, dtype)
-            lo = lambda: op_chain(x, case, STEPS)          # noqa: E731
-            hi = lambda: op_chain(x, case, steps_hi)       # noqa: E731
-            lo()
-            hi()
-            ms_lo = _median_ms(lo, device, reps)
-            ms_hi = _median_ms(hi, device, reps)
-            ns = (ms_hi - ms_lo) * 1e6 / ((steps_hi - STEPS) * ops)
+            x = base_block(device, dtype, cols)
+            ms_lo, ms_hi, ns = slope(x, case, reps, steps_hi)
             r = dict(case=case, dtype=str(dtype).replace("torch.", ""),
                      ops=ops, ms=ms_lo, ms_hi=ms_hi, ns_per_op=ns)
             if clock_hz is not None:
@@ -239,10 +264,21 @@ def run(device, reps=REPS, steps_hi=STEPS_HI):
     return rows
 
 
+def launch_info(case: str, dtype: torch.dtype, cols: int = LANE,
+                device: int = 0) -> dict:
+    """The kernel's launch for the chain of ``case`` in ``dtype`` on a
+    [256, cols] block: ``kernels.op_chain_resources``."""
+    from gslidar_tpu_torch.kernels import op_chain_resources
+    return op_chain_resources(_DTYPE_ID[dtype], _CASE_ID[case], cols,
+                              device=device)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--reps", type=int, default=REPS)
+    parser.add_argument("--cols", type=int, default=LANE,
+                        help="block width (even)")
     a = parser.parse_args(argv)
     device = torch.device(a.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -250,10 +286,11 @@ def main(argv=None):
                          "plain PyTorch version")
     on_card = device.type == "cuda"
     # the plain version at 512 steps is ~17k small launches a case
-    rows = run(device, a.reps, steps_hi=STEPS_HI if on_card else 2 * STEPS)
+    rows = run(device, a.reps, steps_hi=STEPS_HI if on_card else 2 * STEPS,
+               cols=a.cols)
     where = (torch.cuda.get_device_name(device) if on_card
              else "cpu (the plain version, no kernel)")
-    print(f"block [{SUB},{LANE}]  steps {STEPS}  on {where}  (ns per "
+    print(f"block [{SUB},{a.cols}]  steps {STEPS}  on {where}  (ns per "
           f"full-block op, slope between {STEPS} and "
           f"{STEPS_HI if on_card else 2 * STEPS} steps"
           + ("; bound at the maximum SM clock)" if on_card else ")"))

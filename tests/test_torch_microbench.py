@@ -8,8 +8,11 @@ replace, and the least-time bounds.
 * the row gather: the script's own oracle ``table[gid]`` and a verbatim
   copy of its ``_gather_kernel`` (a closure inside its ``main``) in
   interpret mode, against ``gather_rows_reference`` and ``gather_rows``;
+* the op-chain kernel's roll layout (``roll_layout``: the kernel's index
+  maps run on the CPU) against ``torch.roll``;
 * the ``cuda``-marked cases: each kernel against its plain version on the
-  card (they skip without one);
+  card, and the division on whole warps of in-range divisors and over
+  every exponent (they skip without one);
 * ``bounds``: a hand-countable compositor scene, the gather's bytes and
   the op chains' issue bounds.
 
@@ -137,9 +140,9 @@ def test_op_chain_check_catches_a_wrong_roll(dtype, monkeypatch):
     """vpu_ops.check, which chip_smoke.py and the card case run, on chains
     that roll wrongly: at 64 steps they pass (the block comes home), at 1
     step every comparison of the roll fails. The wrong rolls: none; one
-    within each 32-row block (what the kernel gives if its lanes l < s
-    take register k, not k - 1); and, for roll1, the other way (for roll8
-    that is no fault: 16 rolls by -8 move the block by 128 rows too)."""
+    within each 32-row block (a lane-strided layout whose lanes l < s keep
+    their own register); and, for roll1, the other way (for roll8 that is
+    no fault: 16 rolls by -8 move the block by 128 rows too)."""
     x = vpu_ops.base_block("cpu", dtype)
     assert all(r["ok"] for case in vpu_ops.CASES
                for r in vpu_ops.check(x, case))
@@ -169,6 +172,88 @@ def test_op_chain_check_catches_a_wrong_roll(dtype, monkeypatch):
             assert not any(r["ok"] for r in rs if "64 steps" not in r["what"])
 
 
+def roll_layout(v: torch.Tensor, s: int, swap: bool = True) -> torch.Tensor:
+    """csrc/op_chain.cu's roll by s rows (F32::roll, BF16::roll and
+    RollLayout) on the CPU, through the registers as the kernel holds
+    them: one column per warp, row c + s q in register m of lane
+    c * J + j, J = 32 / s, q = R j + m; float32 R = 8 over the 256 rows,
+    bfloat16 R = 4 over rows 0..127, each register packing its row and the
+    row + 128 (the last axis below). Register m takes register m - 1, and
+    register 0 of lane (c, j) register R - 1 of lane (c, j - 1 mod J) (the
+    shuffle), halves swapped for j = 0 in bfloat16 (``swap``: the byte
+    permute)."""
+    packed = v.dtype == torch.bfloat16
+    R, J, halves = (4 if packed else 8), 32 // s, (2 if packed else 1)
+    lane = torch.arange(32)[:, None]
+    m = torch.arange(R)[None, :]
+    rows = (lane // J + s * (R * (lane % J) + m))[..., None] \
+        + 128 * torch.arange(halves)                     # [lane, m, half]
+    regs = v[rows]                                       # [32, R, h, cols]
+    src = lane[:, 0] - lane[:, 0] % J + (lane[:, 0] % J + J - 1) % J
+    t = regs[src, R - 1]
+    if packed and swap:
+        t = torch.where((lane[:, 0] % J == 0)[:, None, None], t.flip(1), t)
+    new = torch.cat([t[:, None], regs[:, :R - 1]], 1)
+    out = torch.empty_like(v)
+    out[rows] = new
+    return out
+
+
+@pytest.mark.parametrize("steps", vpu_ops.CHECK_STEPS)
+@pytest.mark.parametrize("dtype", vpu_ops.DTYPES)
+@pytest.mark.parametrize("case", list(vpu_ops.ROLL_BY))
+def test_roll_layout_is_torch_roll(case, dtype, steps):
+    """The rolls' register layout, run on the CPU, bit for bit against
+    torch.roll, one roll and a whole chain's rolls (16 a step); every row
+    is held once."""
+    s = vpu_ops.ROLL_BY[case]
+    x = vpu_ops.base_block("cpu", dtype)
+    assert torch.equal(roll_layout(x, s), torch.roll(x, s, 0))
+    v = x
+    for _ in range(steps * vpu_ops.CASES[case][1]):
+        v = roll_layout(v, s)
+    assert torch.equal(v, torch.roll(x, vpu_ops.roll_rows(case, steps), 0))
+
+
+def test_op_chain_check_catches_a_half_swap(monkeypatch):
+    """vpu_ops.check on bfloat16 rolls whose lanes j = 0 take register 3
+    of lane (c, J - 1) without swapping its halves (rows r and r + 128
+    trade places in the wrap): at 64 steps they pass (the block comes
+    home), at 1 step both comparisons of each roll fail."""
+    x = vpu_ops.base_block("cpu", torch.bfloat16)
+    reference = vpu_ops.op_chain_reference
+
+    def broken(x, case, steps=vpu_ops.STEPS):
+        if case not in vpu_ops.ROLL_BY:
+            return reference(x, case, steps)
+        v = x
+        for _ in range(steps * vpu_ops.CASES[case][1]):
+            v = roll_layout(v, vpu_ops.ROLL_BY[case], swap=False)
+        return v
+    monkeypatch.setattr(vpu_ops, "op_chain", broken)
+    for case in vpu_ops.ROLL_BY:
+        rs = vpu_ops.check(x, case)
+        assert [r["ok"] for r in rs if "64 steps" in r["what"]] == [True] * 2
+        assert [r["ok"] for r in rs if "64 steps" not in r["what"]] == \
+            [False] * 2
+
+
+def test_op_chain_card_bars():
+    """On the card float32 div is held bit for bit (the kernel's division
+    is IEEE, as torch's); on the CPU it keeps the 1e-5 bar."""
+    assert vpu_ops.required_agreement("div", torch.float32) == \
+        vpu_ops.MIN_AGREE
+    assert vpu_ops.required_agreement("div", torch.float32, True) == 1.0
+    assert vpu_ops.required_agreement("div", torch.bfloat16, True) == \
+        vpu_ops.MIN_AGREE
+    assert vpu_ops.required_agreement("exp", torch.float32, True) == \
+        vpu_ops.MIN_AGREE
+    a = torch.tensor([1.0, 2.0])
+    b = a + torch.tensor([0.0, 5e-6])
+    assert vpu_ops.agreement(a, b, "div") == 1.0
+    assert vpu_ops.exact_f32("div", True) and not vpu_ops.exact_f32("div")
+
+
 def test_op_chain_checks_inputs():
     x = vpu_ops.base_block("cpu")
     with pytest.raises(ValueError):
@@ -191,6 +276,14 @@ def test_op_chain_entry_point_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "cpu (the plain version, no kernel)" in out
     assert out.count("\n") == 2 + len(vpu_ops.CASES)
+
+
+def test_op_chain_entry_point_takes_the_block_width(capsys):
+    """--cols widens the block; its default is the script's 512."""
+    assert vpu_ops.base_block("cpu").shape == (vpu_ops.SUB, vpu_ops.LANE)
+    rows = vpu_ops.main(["--device", "cpu", "--reps", "1", "--cols", "6"])
+    assert len(rows) == 16
+    assert "block [256,6]" in capsys.readouterr().out
 
 
 # ---------------------------------------------------------------- gather
@@ -342,15 +435,114 @@ def test_gather_kernel_matches_plain_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-def test_op_chains_match_plain_on_card(cuda_device):
+@pytest.mark.parametrize("cols", [vpu_ops.LANE, 130])
+def test_op_chains_match_plain_on_card(cuda_device, cols):
+    """Every chain against its plain version (``vpu_ops.check``), on the
+    script's block and on one of 130 columns (a ragged flat tail)."""
     for case in vpu_ops.CASES:
         for dtype in vpu_ops.DTYPES:
-            x = vpu_ops.base_block(cuda_device, dtype)
+            x = vpu_ops.base_block(cuda_device, dtype)[:, :cols].contiguous()
             n = vpu_ops.op_chain.launches
             results = vpu_ops.check(x, case)
             torch.cuda.synchronize()
             assert vpu_ops.op_chain.launches == n + len(vpu_ops.CHECK_STEPS)
             assert all(r["ok"] for r in results), (case, dtype, results)
+
+
+# csrc/op_chain.cu's float32 division takes its fast path for a warp
+# unless an operand of the warp lies outside [2^-31, 2^33) in magnitude
+FAST_LO, FAST_HI = 2.0 ** -31, 2.0 ** 33
+# the block's one divisor out of that range, and the warp group it lies in
+OUT_OF_RANGE_GROUP = 300
+
+
+def division_block() -> np.ndarray:
+    """A [256, 512] float32 block for the division chain whose first
+    divisors v + 1 hold one exponent and sign per warp group, the 32 flat
+    units 32 g .. 32 g + 31 (mod 512 groups): with 1, 2, 4 or 8 registers
+    per thread, the units a warp holds in its registers lie in one group.
+    The groups run through every exponent from -24 to 32 in both signs
+    (-23 for the negative: x + 1 in float32 cannot give a divisor under
+    2^-24 other than 0), with the edges 2^-24 and 2^33 - 512, the largest
+    float under 2^33, in both signs; one element of OUT_OF_RANGE_GROUP is
+    2^33, outside the fast path's range."""
+    n = vpu_ops.SUB * vpu_ops.LANE
+    g = np.arange(n) // 32 % 512
+    sign = np.where(g // 57 % 2, -1.0, 1.0)
+    e = -24 + g % 57
+    e = np.where((sign < 0) & (e == -24), -23, e)
+    m = np.random.default_rng(4).uniform(1, 2, n)
+    x = (sign * np.ldexp(m, e) - 1).astype(np.float32)
+    top = np.float32(FAST_HI - 512)
+    first = {}
+    for i in range(n):
+        first.setdefault((e[i], sign[i]), i)
+    x[first[(-24, 1.0)]] = np.float32(-1 + 2.0 ** -24)
+    x[first[(32, 1.0)]] = top
+    x[first[(32, -1.0)]] = -top
+    x[np.flatnonzero(g == OUT_OF_RANGE_GROUP)[5]] = np.float32(FAST_HI)
+    return x.reshape(vpu_ops.SUB, vpu_ops.LANE)
+
+
+def test_division_block_keeps_whole_warps_on_the_fast_path():
+    """The 8 divisors of a step of the division chain on division_block,
+    computed as the plain version computes them: every warp of every
+    layout of 1, 2, 4 or 8 registers per thread has all of its divisors in
+    the fast path's range but the one that holds OUT_OF_RANGE_GROUP; the
+    first divisors reach every exponent from -24 to 32 and both edges, and
+    each warp's units lie in one group."""
+    v = torch.from_numpy(division_block()).reshape(-1)
+    a = torch.tensor(0.9999, dtype=torch.float32)
+    out = torch.zeros(v.numel(), dtype=torch.bool)
+    for op in range(vpu_ops.CASES["div"][1]):
+        d = v + 1
+        if op == 0:
+            first = d
+        out |= (d.abs() < FAST_LO) | (d.abs() >= FAST_HI)
+        v = a / d
+    n = v.numel()
+    for regs in (1, 2, 4, 8):
+        units = (torch.arange(regs)[:, None] * (n // regs)
+                 + torch.arange(n // regs)[None, :])      # [register, thread]
+        warps = units.reshape(regs, -1, 32).transpose(0, 1)
+        assert (warps // 32 % 512 == warps[:, :1, :1] // 32 % 512).all()
+        warp_out = out[warps].flatten(1).any(1)
+        assert int(warp_out.sum()) == 1, regs
+        assert int(warps[warp_out][0, 0, 0]) // 32 % 512 == \
+            OUT_OF_RANGE_GROUP
+    assert int(out.sum()) == 1
+    fast = first[~out]
+    _, e = torch.frexp(fast)
+    assert set((e - 1).tolist()) == set(range(-24, 33))
+    for sign in (1, -1):
+        assert set((e[fast * sign > 0] - 1).tolist()) >= set(range(-23, 33))
+        assert (fast == sign * (FAST_HI - 512)).any()
+    assert (fast == 2.0 ** -24).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", ["fast path", "every exponent"])
+def test_op_chain_division_on_card(cuda_device, block):
+    """float32 div bit for bit against torch's IEEE division, on two
+    blocks: ``division_block``, whose warps keep the fast path over every
+    exponent of the divisor v + 1 it can reach and its edges, but for one
+    warp sent to the IEEE division by a single divisor; and divisors spread
+    over every exponent at random, with both signs, zeros and infinities,
+    so that nearly every warp takes the IEEE division. NaNs where torch has
+    them."""
+    if block == "fast path":
+        x = division_block()
+    else:
+        rng = np.random.default_rng(3)
+        mag = np.ldexp(rng.uniform(1, 2, (256, 512)),
+                       rng.integers(-140, 128, (256, 512)))
+        x = (mag * rng.choice([-1.0, 1.0], (256, 512))).astype(np.float32)
+        x[0, :8] = [-1.0, 0.0, -0.0, np.inf, -np.inf, 1e-45, -2.0, 3e38]
+    x = torch.from_numpy(x).to(cuda_device)
+    for steps in (1, 2):
+        got = vpu_ops.op_chain(x, "div", steps)
+        want = vpu_ops.op_chain_reference(x, "div", steps)
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
 
 
 # ---------------------------------------------------------------- bounds
@@ -501,9 +693,41 @@ def test_chain_bounds():
     assert bounds.chain_op_bound("exp", 131072, False, 1.98e9).by == "mufu"
     assert bounds.chain_op_bound("exp", 131072, False, 1.98e9).ms * 1e6 == \
         pytest.approx(31.34, abs=1e-2)
-    assert bounds.chain_op_bound("roll1", 131072, False, 1.98e9).by == "shfl"
+    # a roll moves one value of each lane's 8 rows: 1/8 shuffle an element,
+    # at 32 per clock per SM, under the multiply's issue time
+    roll1 = bounds.chain_op_bound("roll1", 131072, False, 1.98e9)
+    assert roll1.by == "fp32" and roll1.ms == pytest.approx(mul.ms)
+    assert roll1.terms["shfl"] == pytest.approx(
+        131072 / 8 / (32 * 132 * 1.98e9) * 1e3)
+    assert bounds.chain_op_bound("roll8", 131072, True, 1.98e9).terms[
+        "shfl"] == pytest.approx(roll1.terms["shfl"])
     packed = bounds.chain_op_bound("mul", 131072, True, 1.98e9)
     assert packed.ms == pytest.approx(mul.ms / 2)
     chain = bounds.chain_bound("mul", 32, 64, 131072, 4, False, 1.98e9)
     assert chain.by == "fp32" and chain.bound_by == "operations"
     assert chain.ms == pytest.approx(64 * (32 + 2) * mul.ms)
+    # sm_90a has no packed MUFU op (its packed ex2 is two MUFU ops): bf16
+    # exp, div and rsqrt take one MUFU op per element, their adds and
+    # multiplies pack
+    for case in ("exp", "div", "rsqrt"):
+        f32 = bounds.chain_op_bound(case, 131072, False, 1.98e9)
+        bf16 = bounds.chain_op_bound(case, 131072, True, 1.98e9)
+        assert bf16.by == "mufu"
+        assert bf16.terms["mufu"] == pytest.approx(f32.terms["mufu"])
+        assert bf16.ms * 1e6 == pytest.approx(31.34, abs=1e-2)
+        assert bf16.terms["fp32"] == pytest.approx(f32.terms["fp32"] / 2)
+        chain = bounds.chain_bound(case, 8, 64, 131072, 2, True, 1.98e9)
+        assert chain.terms["mufu"] == pytest.approx(64 * 8 * f32.ms)
+        assert chain.ms == pytest.approx(64 * 8 * f32.ms)
+        # the step's floor has no packed form either (no cvt.rmi.bf16x2):
+        # per element, its subtract packed
+        assert chain.terms["fp32"] == pytest.approx(
+            64 * (8 / 2 + 1 + 1 / 2) * f32.terms["fp32"])
+    bf16_mul = bounds.chain_bound("mul", 32, 64, 131072, 2, True, 1.98e9)
+    assert bf16_mul.ms == pytest.approx(64 * (32 / 2 + 1.5) * mul.ms)
+    # the 16 chains of the script at 64 steps
+    total = sum(bounds.chain_bound(case, n, 64, 131072, 2 if p else 4, p,
+                                   1.98e9).ms
+                for case, (_, n) in vpu_ops.CASES.items()
+                for p in (False, True))
+    assert total == pytest.approx(0.17289, abs=1e-5)
