@@ -48,9 +48,10 @@ failing phase raises:
    learning rates); each step must launch the forward and the backward
    kernel exactly once, give a finite loss and finite gradients, and every
    param group with a gradient and a learning rate, and the prior, must
-   move; then ``python -m gslidar_tpu_torch.train`` on
-   configs/synthetic_smoke.yaml for 5 steps in a subprocess (scene,
-   ``create_from_pcd`` and the CLI);
+   move (the loop's depth-visualization renders are counted apart); then
+   ``python -m gslidar_tpu_torch.train`` on configs/synthetic_smoke.yaml
+   for 110 steps in a subprocess (scene, ``create_from_pcd``, the CLI, its
+   densify at 100 and its checkpoint at 110);
 7. one full-size training step (iteration 7001, every loss schedule on,
    densification statistics on): the forward kernel and its checkpoints
    against the plain version, and the backward kernel against its plain
@@ -84,7 +85,23 @@ failing phase raises:
    layout's registers per thread, registers, spills, CTAs per SM, SMs
    reached) and the slope's share of its op bound, chains under half of
    it flagged (a flag does not fail the run);
-10. the result: the card's nvidia-smi line, one JSON line of the kernels,
+10. training with densification: ``training`` for 16 steps of the same
+   seeded 1M-gaussian model at kitti360_nvs_1908's widths and thresholds,
+   only the cadence overridden (``DENSIFY_RUN``): the events that fire
+   must be exactly ``gslidar_tpu_torch.train.schedule``'s for the counts
+   observed, with the densify at 8 (after the time-split flip there), the
+   reset at 6 and the prior's rescale at 10 among them; each step launches
+   the forward and the backward kernel once, with a finite loss and
+   gradients; after each reset opacity <= init_opacity + 1e-6 and its
+   moments are 0; after each densify the aux accumulators and the new
+   rows' moments are 0 and the printed counts add up; the step after the
+   densify at 8 holds both kernels against their plain versions at phase
+   7's bars; chkpnt12 and chkpnt16 are written, and a resume from
+   chkpnt12 to 14 loads every leaf bit for bit as saved and takes 2 steps.
+   It prints each densify's counts and time (CUDA events), the median step
+   time between densifies, the checkpoints' size and save and load
+   seconds, and the peak memory;
+11. the result: the card's nvidia-smi line, one JSON line of the kernels,
    and the last line ``{"ok": true, "device": {...}}``.
 
 Tolerances, forward kernel vs plain: color, features, normal, alpha and
@@ -147,7 +164,7 @@ MAX_FLIP_FRAC = 1e-3
 BWD_RTOL = 1e-4           # backward: per column, of its largest magnitude
 CKPT_RTOL = 1e-4          # checkpoint sums: per field, of its largest one
 TRAIN_STEPS = 6
-CLI_STEPS = 5
+CLI_STEPS = 110           # configs/synthetic_smoke.yaml densifies at 100
 TIMED_ITERATION = 7001    # every loss schedule on (distortion > 3000,
                           # normal consistency > 7000)
 # 360 pass vs two-half stitch (stitch_vs_360): the pixels outside the
@@ -831,7 +848,7 @@ def phase_full_size(args, params, alive, prior, cam, smi):
 
 
 # ---------------------------------------------------------------- phase 6
-def train_args(model_path, iterations):
+def train_args(model_path, iterations, overrides=()):
     """kitti360_nvs_1908's run config on the procedural Synthetic scene."""
     from gslidar_tpu_torch.train import load_args
     return load_args(os.path.join(REPO, "configs", "kitti360_nvs_1908.yaml"),
@@ -839,7 +856,36 @@ def train_args(model_path, iterations):
                      ["scene_type=Synthetic", f"seed={SEED}", "frames=8",
                       f"hw=[{HW[0]},{HW[1]}]", f"num_pts={NUM_GAUSSIANS}",
                       f"model_path={model_path}",
-                      f"iterations={iterations}"])
+                      f"iterations={iterations}", *overrides])
+
+
+class StepLaunches:
+    """The compositors' launches of each training step: ``step()`` from
+    the step's ``on_step`` hook, ``skip()`` from every event hook, whose
+    launches (the loop's depth visualizations) go to ``other`` and not to
+    the next step. ``per_step`` lists (forward, backward) per step."""
+
+    def __init__(self):
+        self.last = self.now()
+        self.per_step = []
+        self.other = (0, 0)
+
+    @staticmethod
+    def now():
+        from gslidar_tpu_torch.raster.composite_bwd import composite_backward
+        from gslidar_tpu_torch.raster.composite_fwd import composite_forward
+        return composite_forward.launches, composite_backward.launches
+
+    def step(self):
+        now = self.now()
+        self.per_step.append((now[0] - self.last[0], now[1] - self.last[1]))
+        self.last = now
+
+    def skip(self):
+        now = self.now()
+        self.other = tuple(o + n - l for o, n, l in
+                           zip(self.other, now, self.last))
+        self.last = now
 
 
 def phase_train(device, init_params):
@@ -848,6 +894,7 @@ def phase_train(device, init_params):
     and read just after."""
     import math
     import random
+    import shutil
     import numpy as np
     import torch
     from gslidar_tpu_torch.models.gaussians import PARAM_KEYS
@@ -864,23 +911,24 @@ def phase_train(device, init_params):
 
     def on_step(iteration, state, loss, log, grads):
         nonlocal finite
-        counts.append((composite_forward.launches,
-                       composite_backward.launches, log["num_pairs"]))
+        steps.step()
+        counts.append(log["num_pairs"])
         for k, g in grads.items():
             finite = finite and bool(torch.isfinite(g).all())
             grad_seen[k] = grad_seen.get(k, False) or bool(g.any())
 
     composite_forward.launches = 0
     composite_backward.launches = 0
+    steps = StepLaunches()
     t0 = time.perf_counter()
     state, scene, losses = training(args, device, init_params=init_params,
-                                    on_step=on_step)
+                                    on_step=on_step,
+                                    on_event=lambda *a: steps.skip())
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = (composite_forward.launches, composite_backward.launches)
 
-    per_step = [(f1 - f0, b1 - b0) for (f0, b0, _), (f1, b1, _) in
-                zip([(0, 0, 0)] + counts[:-1], counts)]
+    per_step = steps.per_step
     lrs = group_lrs(args, 1)
     moved = {k: not torch.equal(state.params[k], init_params[k])
              for k in PARAM_KEYS}
@@ -890,13 +938,15 @@ def phase_train(device, init_params):
              for k in PARAM_KEYS if not expect[k]}
     say(6, f"training path: {len(losses)} steps of {NUM_GAUSSIANS} gaussians "
            f"at {HW[0]}x{HW[1]} | launches forward {launches[0]}, backward "
-           f"{launches[1]}, per step {per_step} | instances per step "
-           f"{[c[2] for c in counts]} | loss {[round(x, 5) for x in losses]}"
+           f"{launches[1]}, per step {per_step} (and {steps.other[0]} "
+           f"forwards of the loop's depth visualizations) | instances per "
+           f"step {counts} | loss {[round(x, 5) for x in losses]}"
            f" | gradients finite {finite} | moved "
            f"{sorted(k for k in moved if moved[k])}, prior {prior_moved}; "
            f"unmoved by the config {still} | {wall_s:.2f} s with set-up")
     # SH degree 0 until sh_increase_interval: f_rest has no gradient yet
     core = ("xyz", "f_dc", "opacity", "scaling", "rotation")
+    shutil.rmtree(args.model_path, ignore_errors=True)   # its checkpoint
     if (len(losses) != TRAIN_STEPS or any(d != (1, 1) for d in per_step)
             or not all(math.isfinite(x) for x in losses) or not finite
             or moved != expect or not prior_moved
@@ -907,22 +957,279 @@ def phase_train(device, init_params):
 
 def phase_train_cli():
     """``python -m gslidar_tpu_torch.train`` as a user runs it: the scene,
-    create_from_pcd and CLI_STEPS steps of configs/synthetic_smoke.yaml."""
+    create_from_pcd and CLI_STEPS steps of configs/synthetic_smoke.yaml,
+    past its densify at 100 to the checkpoint at CLI_STEPS."""
+    import shutil
     import sys
     env = dict(os.environ, PYTHONPATH=REPO)
+    run = os.path.join(REPO, "build", "chip_smoke_cli")
+    shutil.rmtree(run, ignore_errors=True)
     cmd = [sys.executable, "-m", "gslidar_tpu_torch.train", "--config",
            "configs/synthetic_smoke.yaml", f"iterations={CLI_STEPS}",
-           f"seed={SEED}",
-           f"model_path={os.path.join(REPO, 'build', 'chip_smoke_cli')}"]
+           f"seed={SEED}", f"model_path={run}"]
     t0 = time.perf_counter()
     r = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
                        text=True, timeout=600)
     wall_s = time.perf_counter() - t0
-    last = (r.stdout.strip().splitlines() or [""])[-1]
-    say(6, f"training CLI: rc {r.returncode} in {wall_s:.1f} s | {last}")
-    if r.returncode != 0 or f"trained {CLI_STEPS} steps" not in last:
+    lines = r.stdout.strip().splitlines() or [""]
+    densify = [ln for ln in lines if "] densify:" in ln]
+    ckpt = os.path.join(run, "ckpt", f"chkpnt{CLI_STEPS}.npz")
+    say(6, f"training CLI: rc {r.returncode} in {wall_s:.1f} s | "
+           f"{' | '.join(densify)} | {lines[-1]} | checkpoint "
+           f"{os.path.getsize(ckpt) if os.path.exists(ckpt) else 'MISSING'}"
+           f" bytes")
+    if (r.returncode != 0 or f"trained {CLI_STEPS} steps" not in lines[-1]
+            or not any(ln.startswith("[100] densify:") for ln in densify)
+            or not os.path.exists(ckpt)):
         raise RuntimeError(f"the training CLI failed:\n{r.stdout[-2000:]}\n"
                            f"{r.stderr[-3000:]}")
+    shutil.rmtree(run, ignore_errors=True)
+
+
+# --------------------------------------------------------------- phase 10
+# the cadence of the densification run; kitti360_nvs_1908's widths,
+# thresholds and densify_until_num_points stay as configured
+DENSIFY_RUN = ["densify_from_iter=4", "densification_interval=4",
+               "densify_until_iter=14", "opacity_reset_interval=6",
+               "scale_increase_interval=10", "checkpoint_iterations=[12]",
+               "vis_step=8"]
+DENSIFY_ITERATIONS, RESUME_ITERATIONS = 16, 14
+
+
+def _median_ms(step_ms, its):
+    v = [step_ms[i] for i in its if i in step_ms]
+    return statistics.median(v) if v else float("nan")
+
+
+def phase_train_densify(device, init_params, smi):
+    """A training run with densification: ``training`` for 16 steps of
+    the seeded 1M-gaussian model at kitti360_nvs_1908's widths with
+    DENSIFY_RUN's cadence, the launch counts set to 0 just before it and
+    read just after; then a resume from its checkpoint at 12 to 14."""
+    import math
+    import random
+    import shutil
+    import numpy as np
+    import torch
+    import gslidar_tpu_torch.raster.composite_op as co
+    import gslidar_tpu_torch.train as T
+    from gslidar_tpu_torch.config import Config
+    from gslidar_tpu_torch.engine.checkpoint import load_train_state
+    from gslidar_tpu_torch.raster.composite_bwd import composite_backward
+    from gslidar_tpu_torch.raster.composite_fwd import composite_forward
+    from gslidar_tpu_torch.render import gaussian_config
+
+    run = os.path.join(REPO, "build", "chip_smoke_densify")
+    shutil.rmtree(run, ignore_errors=True)
+    args = train_args(run, DENSIFY_ITERATIONS, DENSIFY_RUN)
+    init_opacity = gaussian_config(args).init_opacity
+    random.seed(SEED)
+    np.random.seed(SEED)
+    rec = dict(n={}, events={}, step_ms={}, densify={}, ckpt={},
+               upscale={})
+    bad, cuda_ms, held = [], [], {}
+    capture = dict(armed=False)
+    bwd_orig, make_orig = co.composite_backward, T.make_densify_fn
+
+    def bwd_keep(*a):
+        if capture["armed"]:
+            capture["bwd"] = a
+        return bwd_orig(*a)
+
+    def make_timed(*a, **k):
+        fn = make_orig(*a, **k)
+
+        def timed(*aa, **kk):                 # the densify by CUDA events
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*aa, **kk)
+            ev[1].record()
+            torch.cuda.synchronize()
+            cuda_ms.append(ev[0].elapsed_time(ev[1]))
+            return out
+        return timed
+
+    def mark():
+        torch.cuda.synchronize()
+        rec["t"] = time.perf_counter()
+
+    def check_kernels(iteration):
+        """The step's forward (with checkpoints) and backward kernels
+        against their plain versions, at phase 7's bars; the launches of
+        this comparison are not the run's."""
+        saved = (composite_forward.launches, composite_backward.launches)
+        rows, starts, fwd, _, params8, st, C, S, ckpt = capture.pop("bwd")
+        ok_f, summ_f, _, _ = run_pair(rows, starts, params8, st, C, S)
+        ok_b, summ_b = run_bwd_pair(rows, starts, fwd,
+                                    random_cotangents(st, C, S, SEED + 19,
+                                                      device),
+                                    params8, st, C, S, ckpt)
+        composite_forward.launches, composite_backward.launches = saved
+        for kind, ok, summ in (("forward", ok_f, summ_f),
+                               ("backward", ok_b, summ_b)):
+            say(10, f"{kind} kernel vs plain on step {iteration}, the first "
+                    f"after the densify ({rows.shape[0]} instances): "
+                    f"{'ok' if ok else 'FAIL'} {json.dumps(summ)}")
+            if not ok:
+                bad.append(f"{kind} kernel vs plain at {iteration}")
+        rec["kernels_checked"] = iteration
+
+    def on_step(iteration, state, loss, log, grads):
+        torch.cuda.synchronize()
+        rec["step_ms"][iteration] = (time.perf_counter() - rec["t"]) * 1e3
+        steps.step()
+        rec["n"][iteration] = state.params["xyz"].shape[0]
+        rec["events"][iteration] = []
+        if not (math.isfinite(float(loss)) and all(
+                bool(torch.isfinite(g).all()) for g in grads.values())):
+            bad.append(f"non-finite loss or gradient at {iteration}")
+        if capture["armed"]:
+            capture["armed"] = False
+            check_kernels(iteration)
+        mark()
+
+    def on_event(iteration, name, state, info):
+        steps.skip()
+        rec["events"][iteration].append(name)
+        if name == "densify":
+            c = dict(info, cuda_ms=cuda_ms[-1])
+            rec["densify"][iteration] = c
+            new = slice(c["old_kept"], None)
+            zero_aux = not any(bool(getattr(state.aux, f).any()) for f in (
+                "max_radii2D", "xyz_gradient_accum",
+                "xyz_gradient_accum_abs", "t_gradient_accum", "denom"))
+            zero_new = not any(bool(m[k][new].any()) for m in (
+                state.opt.mu, state.opt.nu) for k in m)
+            adds = (c["before"] - c["never_visible"] - c["splits"] + c["new"]
+                    - c["opacity_pruned"] - c["world_size_pruned"]
+                    == c["after"] == state.params["xyz"].shape[0])
+            if not (zero_aux and zero_new and adds):
+                bad.append(f"densify at {iteration}: aux zero {zero_aux}, "
+                           f"new moments zero {zero_new}, counts add up "
+                           f"{adds}")
+            capture["armed"] = iteration == 8
+        elif name == "reset":
+            top = float(torch.sigmoid(state.params["opacity"]).max())
+            if top > init_opacity + 1e-6 or bool(
+                    state.opt.mu["opacity"].any()) or bool(
+                    state.opt.nu["opacity"].any()):
+                bad.append(f"reset at {iteration}: max opacity {top}")
+        elif name == "upscale":
+            rec["upscale"][iteration] = (tuple(state.prior.shape),
+                                         state.prior_opt[2])
+        elif name == "checkpoint":
+            rec["ckpt"][iteration] = info
+            held[iteration] = state
+        mark()
+
+    torch.cuda.reset_peak_memory_stats()
+    co.composite_backward, T.make_densify_fn = bwd_keep, make_timed
+    try:
+        composite_forward.launches = 0
+        composite_backward.launches = 0
+        steps = StepLaunches()
+        mark()
+        t0 = time.perf_counter()
+        state, scene, losses = T.training(args, device,
+                                          init_params=init_params,
+                                          on_step=on_step, on_event=on_event)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = (composite_forward.launches, composite_backward.launches)
+    finally:
+        co.composite_backward, T.make_densify_fn = bwd_orig, make_orig
+    per_step = steps.per_step
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # the events against the schedule, on the counts observed
+    nts, wrong = bool(args.no_time_split), []
+    for it in range(1, DENSIFY_ITERATIONS + 1):
+        want = T.schedule(args, it, rec["n"][it], nts)
+        got = [e for e in rec["events"][it] if e not in ("vis", "eval")]
+        if got != want:
+            wrong.append((it, got, want))
+        nts = nts and "flip" not in got
+    fired = {it: [e for e in ev if e not in ("vis", "eval")]
+             for it, ev in rec["events"].items()
+             if any(e not in ("vis", "eval") for e in ev)}
+    say(10, f"training with densification: {len(losses)} steps from "
+            f"{NUM_GAUSSIANS} gaussians at {HW[0]}x{HW[1]} ("
+            + ", ".join(DENSIFY_RUN) + f") | events {fired} | launches "
+            f"forward {launches[0]}, backward {launches[1]}, per step "
+            f"{per_step} (and {steps.other[0]} forwards of the depth "
+            f"visualizations) | gaussians per step "
+            f"{[rec['n'][i] for i in sorted(rec['n'])]} | loss "
+            f"{[round(x, 5) for x in losses]} | {wall_s:.2f} s")
+    for it, c in rec["densify"].items():
+        say(10, f"densify at {it}: {c['before']} -> {c['after']} gaussians: "
+                f"never visible -{c['never_visible']}, clones "
+                f"{c['clones']}, splits {c['splits']} (originals cut), new "
+                f"+{c['new']}, opacity prune -{c['opacity_pruned']}, "
+                f"world-size prune -{c['world_size_pruned']} (on: "
+                f"{c['world_size_prune']}) | {c['cuda_ms']:.3f} ms by CUDA "
+                f"events on {smi} ({c['ms']:.3f} ms host)")
+    dens = sorted(rec["densify"])
+    spans = [range(2, dens[0])] + [range(a + 1, b) for a, b in
+                                   zip(dens, dens[1:] + [DENSIFY_ITERATIONS
+                                                          + 1])]
+    say(10, f"step time on {smi} (host clock around each step, synchronised;"
+            f" median): " + ", ".join(
+                f"steps {r.start}-{r.stop - 1} "
+                f"({rec['n'][r.start]} gaussians) "
+                f"{_median_ms(rec['step_ms'], r):.3f} ms" for r in spans
+                if len(r)) + " | upscale " + str(rec["upscale"])
+        + f" | peak memory {peak_gb:.2f} GiB")
+
+    # the resume from the checkpoint at 12
+    path12 = rec["ckpt"].get(12, {}).get("path", "")
+    t0 = time.perf_counter()
+    loaded, it12 = load_train_state(path12, device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    saved = held[12]
+    same = (it12 == 12 and loaded.opt.count == saved.opt.count
+            and loaded.prior_opt[2] == saved.prior_opt[2]
+            and all(a.dtype == b.dtype and torch.equal(a, b) for a, b in [
+                *((loaded.params[k], saved.params[k]) for k in saved.params),
+                *((loaded.opt.mu[k], saved.opt.mu[k]) for k in saved.params),
+                *((loaded.opt.nu[k], saved.opt.nu[k]) for k in saved.params),
+                *((getattr(loaded.aux, f), getattr(saved.aux, f)) for f in (
+                    "alive", "max_radii2D", "xyz_gradient_accum",
+                    "xyz_gradient_accum_abs", "t_gradient_accum", "denom")),
+                (loaded.prior, saved.prior),
+                (loaded.prior_opt[0], saved.prior_opt[0]),
+                (loaded.prior_opt[1], saved.prior_opt[1])]))
+    del loaded, held
+    resume = train_args(run, RESUME_ITERATIONS, DENSIFY_RUN)
+    Config.update(resume, "start_checkpoint", path12)
+    composite_forward.launches = 0
+    composite_backward.launches = 0
+    steps = StepLaunches()
+    r_losses = T.training(resume, device, init_params=init_params,
+                          on_step=lambda *a: steps.step(),
+                          on_event=lambda *a: steps.skip())[2]
+    say(10, "checkpoints: " + ", ".join(
+        f"{it}: {c['bytes']} bytes saved in {c['seconds']:.2f} s"
+        for it, c in sorted(rec["ckpt"].items()))
+        + f" | chkpnt12 loaded in {load_s:.2f} s, every leaf bit for bit as "
+          f"saved: {same} | resume to {RESUME_ITERATIONS}: "
+          f"{len(r_losses)} steps, launches per step {steps.per_step}, loss "
+          f"{[round(x, 5) for x in r_losses]}")
+    files = {it: os.path.exists(os.path.join(run, "ckpt",
+                                             f"chkpnt{it}.npz"))
+             for it in (12, DENSIFY_ITERATIONS)}
+    shutil.rmtree(run, ignore_errors=True)
+    if (wrong or bad or len(losses) != DENSIFY_ITERATIONS
+            or any(d != (1, 1) for d in per_step + steps.per_step)
+            or 8 not in rec["densify"] or "reset" not in rec["events"][6]
+            or "upscale" not in rec["events"][10]
+            or rec.get("kernels_checked") != 9
+            or not all(files.values()) or not same
+            or len(r_losses) != RESUME_ITERATIONS - 12
+            or not all(math.isfinite(x) for x in r_losses)):
+        raise RuntimeError(f"the densification run failed its checks: "
+                           f"events off the schedule {wrong}, {bad}, "
+                           f"checkpoints {files}, resume bitwise {same}")
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1367,6 +1674,7 @@ def main():
     bound_bwd = say_bounds(7, "backward kernel on the training view",
                            works7["backward"], clock_hz,
                            med7["backward kernel"])
+    phase_train_densify(device, params, smi)
     del params, alive, prior, cams, scene
     torch.cuda.empty_cache()
     gather = phase_gather(device)

@@ -1,15 +1,18 @@
-"""The training step (port of gslidar_tpu/engine/train.py; reference
-train.py:150-375).
+"""The training step, densify and the opacity reset (port of
+gslidar_tpu/engine/train.py; reference train.py:150-375).
 
 One step renders one camera through the kernels, assembles the losses,
 runs autograd back through the backward compositing kernel, preprocess,
 SH and the model activations, accumulates the densification statistics
 off a zero T tap, and applies per-group Adam to the gaussians and the
 prior's own Adam. The state is a ``TrainState`` of exact-size tensors.
+``state_to_numpy`` and ``state_from_numpy`` carry it to and from the
+layout of gslidar_tpu's TrainState.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -18,7 +21,9 @@ import torch
 from gslidar_tpu_torch.engine.losses import compute_losses
 from gslidar_tpu_torch.engine.render import render
 from gslidar_tpu_torch.models import gaussians as G
-from gslidar_tpu_torch.models.densify import add_densification_stats
+from gslidar_tpu_torch.models.densify import (add_densification_stats,
+                                              densify_and_prune,
+                                              reset_opacity)
 from gslidar_tpu_torch.models.optim import (AdamState, adam_from_numpy,
                                             adam_step, group_lrs, init_adam)
 from gslidar_tpu_torch.models.raydrop_prior import PriorAdam
@@ -76,6 +81,25 @@ def state_from_numpy(state, device) -> TrainState:
                            device=device),
         prior_opt=PriorAdam.from_numpy(
             [np.asarray(x) for x in state.prior_opt], device))
+
+
+def state_to_numpy(state: TrainState) -> TrainState:
+    """This package's TrainState -> the same structure with numpy leaves
+    in the layout of gslidar_tpu's: ``alive`` all True, float32 arrays,
+    the Adam step counts as int32 scalars. ``state_from_numpy`` inverts
+    it."""
+    def np32(x):
+        return x.detach().cpu().numpy().astype(np.float32, copy=False)
+    mu, nu, count = state.prior_opt
+    return TrainState(
+        params={k: np32(v) for k, v in state.params.items()},
+        aux=G.GaussianAux(**{f.name: getattr(state.aux, f.name).cpu().numpy()
+                             for f in dataclasses.fields(state.aux)}),
+        opt=AdamState(mu={k: np32(v) for k, v in state.opt.mu.items()},
+                      nu={k: np32(v) for k, v in state.opt.nu.items()},
+                      count=np.asarray(state.opt.count, np.int32)),
+        prior=np32(state.prior),
+        prior_opt=(np32(mu), np32(nu), np.asarray(count, np.int32)))
 
 
 def make_train_step(args, cfg: G.GaussianConfig, settings: RasterSettings,
@@ -139,6 +163,31 @@ def make_train_step(args, cfg: G.GaussianConfig, settings: RasterSettings,
                 {**gp, "prior": gprior})
 
     return train_step
+
+
+def make_densify_fn(args, cfg: G.GaussianConfig):
+    """``densify_fn(state, generator, extent, size_threshold)`` -> (new
+    TrainState, counts): densify and prune at
+    the config's thresholds (gslidar_tpu's make_densify_fn), the split
+    offsets drawn from ``generator``; ``size_threshold`` None turns the
+    world-size prune off."""
+    @torch.no_grad()
+    def densify_fn(state: TrainState, generator, extent, size_threshold):
+        out = densify_and_prune(
+            state.params, state.aux, state.opt, cfg,
+            max_grad=args.densify_grad_threshold,
+            max_grad_t=args.densify_grad_t_threshold,
+            min_opacity=args.thresh_opa_prune, extent=extent,
+            size_threshold=size_threshold, generator=generator)
+        return state._replace(params=out.params, aux=out.aux,
+                              opt=out.opt_state), out.counts
+    return densify_fn
+
+
+@torch.no_grad()
+def reset_opacity_state(state: TrainState, cfg) -> TrainState:
+    p, opt = reset_opacity(state.params, state.opt, cfg)
+    return state._replace(params=p, opt=opt)
 
 
 @torch.no_grad()

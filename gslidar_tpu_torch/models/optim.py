@@ -98,3 +98,33 @@ def adam_step(params: Params, grads: Params, state: AdamState,
         new_p[k] = params[k] - lrs[k] * update
         new_mu[k], new_nu[k] = mu, nu
     return new_p, AdamState(mu=new_mu, nu=new_nu, count=count)
+
+
+def zero_moments_at(state: AdamState, row_mask: torch.Tensor,
+                    keys=None) -> AdamState:
+    """Zero the moments of the masked rows (gslidar_tpu's zero_moments_at;
+    the optimizer surgery of reset_opacity, gaussian_model.py:328-341)."""
+    keys = keys or PARAM_KEYS
+    mu, nu = dict(state.mu), dict(state.nu)
+    for k in keys:
+        m = row_mask.reshape((-1,) + (1,) * (mu[k].dim() - 1))
+        mu[k] = torch.where(m, 0.0, mu[k])
+        nu[k] = torch.where(m, 0.0, nu[k])
+    return AdamState(mu=mu, nu=nu, count=state.count)
+
+
+def cut_and_append_moments(state: AdamState, rows: torch.Tensor,
+                           n_new: int = 0) -> AdamState:
+    """The moments of the exact-size layout's densify: keep ``rows`` (an
+    index or a bool mask over the old rows, in order) and append ``n_new``
+    zero rows for the new gaussians (the reference's cat of zero exp_avg /
+    exp_avg_sq and its prune, gaussian_model.py:343-412). The step count
+    stays as it is."""
+    def cut(d):
+        out = {}
+        for k, v in d.items():
+            kept = v[rows]
+            out[k] = (torch.cat([kept, kept.new_zeros((n_new,) + v.shape[1:])])
+                      if n_new else kept)
+        return out
+    return AdamState(mu=cut(state.mu), nu=cut(state.nu), count=state.count)

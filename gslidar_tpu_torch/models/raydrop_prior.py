@@ -29,6 +29,38 @@ def raydrop_prior_forward(param: torch.Tensor, towards: str) -> torch.Tensor:
     return torch.sigmoid(sl)
 
 
+def _linspace(n_src: int, n_dst: int, device) -> torch.Tensor:
+    """numpy.linspace(0, n_src - 1, n_dst) in float64, computed as numpy
+    computes it (i * step, the last sample set to the end)."""
+    i = torch.arange(n_dst, dtype=torch.float64, device=device)
+    if n_dst == 1:
+        return i
+    out = i * ((n_src - 1) / (n_dst - 1))
+    out[-1] = n_src - 1
+    return out
+
+
+def raydrop_prior_upscale(param: torch.Tensor, h: int, w: int
+                          ) -> torch.Tensor:
+    """Bilinear resize to [1, h, 2w] on a coarse-to-fine step (reference
+    raydrop_prior.py:39-42, align_corners=True), in float64 as the JAX
+    package's numpy version computes it, then cast to float32."""
+    src = param[0].to(torch.float64)
+    sh, sw = src.shape
+    yi = _linspace(sh, h, src.device)
+    xi = _linspace(sw, 2 * w, src.device)
+    y0, x0 = yi.floor().long(), xi.floor().long()
+    y1 = torch.clamp_max(y0 + 1, sh - 1)
+    x1 = torch.clamp_max(x0 + 1, sw - 1)
+    wy = (yi - y0)[:, None]
+    wx = (xi - x0)[None, :]
+    out = (src[y0][:, x0] * (1 - wy) * (1 - wx)
+           + src[y1][:, x0] * wy * (1 - wx)
+           + src[y0][:, x1] * (1 - wy) * wx
+           + src[y1][:, x1] * wy * wx)
+    return out[None].to(torch.float32)
+
+
 class PriorAdam:
     """The prior's own Adam, torch.optim.Adam(lr, eps=1e-15)
     (gslidar_tpu/models/raydrop_prior.py::PriorAdam). The state is

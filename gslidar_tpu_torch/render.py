@@ -41,12 +41,15 @@ def raster_settings(args, h: int, w: int) -> RasterSettings:
         tight_rects=bool(args.get("raster_tight_rects", True)))
 
 
-def gaussian_config(args) -> GaussianConfig:
+def gaussian_config(args, no_time_split=None) -> GaussianConfig:
+    """The model config of a run; ``no_time_split`` overrides the run's
+    (the training loop's time-split flip, root train.py:81-92)."""
     return GaussianConfig(
         sh_degree=args.sh_degree, cycle=args.cycle,
         velocity_decay=args.velocity_decay,
         time_duration=tuple(args.time_duration), t_init=args.t_init,
-        no_time_split=args.get("no_time_split", True),
+        no_time_split=(args.get("no_time_split", True)
+                       if no_time_split is None else no_time_split),
         t_grad=args.get("t_grad", True), contract=args.get("contract", True),
         big_point_threshold=args.get("big_point_threshold", 0.1),
         random_init_point=args.random_init_point,

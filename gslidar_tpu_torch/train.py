@@ -1,60 +1,145 @@
 """Train a scene on the GPU.
 
     python -m gslidar_tpu_torch.train --config configs/<scene>.yaml \
-        [--base_config configs/base.yaml] [--device cuda|cpu] [key=val ...]
+        [--base_config configs/base.yaml] [--device cuda|cpu] \
+        [--start_checkpoint <model_path>/ckpt/chkpnt<it>.npz] [key=val ...]
 
 The port's counterpart of the root ``train.py`` (``training``, train.py:
-95-326), for what the port has so far: it builds the scene, initializes
-the gaussians from its point cloud (``create_from_pcd``) and the ray-drop
-prior, and takes ``iterations`` training steps, each on one camera picked
-with the same numpy random stream and the same self-supervision time
-shift as the JAX package (train.py:287-297), with the SH degree schedule
-(train.py:285), printing the loss every 10 steps.
+95-469, and its entry, :472-551). It builds the scene, initializes the
+gaussians from its point cloud (``create_from_pcd``) and the ray-drop
+prior, and trains from iteration 1 (or the checkpoint's) to
+``iterations``, in the JAX loop's order within an iteration:
 
-Densify and prune, opacity resets, evaluation, checkpoints and the
-coarse-to-fine rescale are not ported yet, so a run that would reach the
-densification window (``iterations >= densify_from_iter``) raises.
+* the SH degree and the camera pick, with the same numpy random stream
+  and self-supervision time shift (train.py:285-299);
+* the step, with the densification statistics on inside the window and
+  the gaussians' Adam skipped on a densify iteration (:304-326);
+* the time-split flip (:329-332), densify and prune with the world-size
+  prune once past the first opacity reset (:334-344), and the opacity
+  reset (:356-359) under the JAX loop's own conditions;
+* the log every 10 steps, to stdout and, when ``tensorboardX`` imports,
+  to TensorBoard (:361-429); the depth visualization every ``vis_step``
+  (:438-449); the coarse-to-fine step (:451-459) and the checkpoints
+  (:461-464), which gslidar_tpu's ``load_checkpoint`` reads.
+
+The tensors are sized exactly, so the JAX loop's capacity growth and
+instance caps have no counterpart. Evaluation at ``test_iterations`` is
+not ported yet: such an iteration prints a line that says so.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import time
 
 import numpy as np
 import torch
 
+from gslidar_tpu_torch.engine.checkpoint import (checkpoint_path,
+                                                 load_train_state,
+                                                 save_checkpoint)
+from gslidar_tpu_torch.engine.evaluate import make_eval_render
 from gslidar_tpu_torch.engine.train import (camera_to_batch,
                                             init_train_state,
-                                            make_train_step)
+                                            make_densify_fn, make_train_step,
+                                            reset_opacity_state)
 from gslidar_tpu_torch.models.gaussians import GaussianAux, create_from_pcd
-from gslidar_tpu_torch.models.raydrop_prior import init_raydrop_prior
+from gslidar_tpu_torch.models.raydrop_prior import (PriorAdam,
+                                                    init_raydrop_prior,
+                                                    raydrop_prior_upscale)
 from gslidar_tpu_torch.render import (build_scene, gaussian_config,
                                       raster_settings)
+from gslidar_tpu_torch.utils.general import (make_image_grid, save_image,
+                                             visualize_depth)
 
 
-def training(args, device, init_params=None, on_step=None):
-    """Train ``args.iterations`` steps from iteration 1.
+def in_densify_window(args, iteration, n_gaussians):
+    """(in_window, is_densify) of an iteration, the JAX loop's conditions
+    (train.py:304-309), on the count of gaussians before its step."""
+    in_window = (args.densify_from_iter < iteration < args.densify_until_iter
+                 and (args.densify_until_num_points < 0
+                      or n_gaussians < args.densify_until_num_points))
+    return in_window, in_window and \
+        iteration % args.densification_interval == 0
+
+
+def schedule(args, iteration, n_gaussians, no_time_split):
+    """The events the loop fires after the step of ``iteration`` with
+    ``n_gaussians`` before it and the time-split mode ``no_time_split``
+    before it, in the loop's order, of "flip", "densify", "reset",
+    "upscale" and "checkpoint" (train.py:304-309,329,334,356-358,451,
+    461). The reset needs ``in_window``, hence ``densify_from_iter <
+    iteration``, so its white-background clause (``iteration ==
+    densify_from_iter``) never fires in the JAX loop, nor here."""
+    in_window, is_densify = in_densify_window(args, iteration, n_gaussians)
+    events = []
+    if no_time_split and \
+            iteration > args.densify_until_iter * args.time_split_frac:
+        events.append("flip")
+    if is_densify:
+        events.append("densify")
+    if in_window and (iteration % args.opacity_reset_interval == 0
+                      or (args.white_background
+                          and iteration == args.densify_from_iter)):
+        events.append("reset")
+    if iteration % args.scale_increase_interval == 0:
+        events.append("upscale")
+    if iteration in args.checkpoint_iterations:
+        events.append("checkpoint")
+    return events
+
+
+class _TensorBoard:
+    """TensorBoard scalars through tensorboardX when it imports; else one
+    printed notice and nothing more (a machine without it still trains)."""
+
+    def __init__(self, logdir):
+        try:
+            from tensorboardX import SummaryWriter
+        except ImportError:
+            print("tensorboardX is not installed: no TensorBoard log, the "
+                  "log is stdout", flush=True)
+            self.writer = None
+        else:
+            self.writer = SummaryWriter(logdir)
+
+    def scalars(self, iteration, log, n_gaussians):
+        if self.writer is None:
+            return
+        for k, v in log.items():
+            self.writer.add_scalar(f"TrainLoss/{k}", float(v), iteration)
+        self.writer.add_scalar("total_points", n_gaussians, iteration)
+
+    def close(self):
+        if self.writer is not None:
+            self.writer.close()
+
+
+def training(args, device, init_params=None, on_step=None, on_event=None):
+    """Train from iteration 1, or from ``args.start_checkpoint``'s, to
+    ``args.iterations``.
 
     ``init_params`` (a params dict on ``device``) replaces the gaussians
-    ``create_from_pcd`` would make; ``on_step(iteration, state, loss, log,
-    grads)`` is called after each step. Returns (state, scene, losses):
-    the final TrainState and the loss of every step.
+    ``create_from_pcd`` would make. ``on_step(iteration, state, loss, log,
+    grads)`` is called after each step; ``on_event(iteration, name,
+    state, info)`` after each event of the loop: "flip", "densify" (info:
+    the counts and ``ms``, the densify's time), "reset", "vis",
+    "upscale", "checkpoint" (info: ``path``, ``seconds``, ``bytes``) and
+    "eval". Returns (state, scene, losses): the final TrainState and the
+    loss of every step taken.
     """
-    if args.iterations >= args.densify_from_iter:
-        raise NotImplementedError(
-            f"iterations={args.iterations} reaches densify_from_iter="
-            f"{args.densify_from_iter}: densification is not ported to "
-            f"gslidar_tpu_torch yet")
-    os.makedirs(args.model_path, exist_ok=True)
+    vis_path = os.path.join(args.model_path, "visualization")
+    os.makedirs(vis_path, exist_ok=True)
+    os.makedirs(os.path.join(args.model_path, "ckpt"), exist_ok=True)
     scene = build_scene(args, shuffle=bool(args.shuffle))
     with open(os.path.join(args.model_path, "scale_factor.txt"), "w") as f:
         f.write(str(args.scale_factor))
 
-    cfg = gaussian_config(args)
     if init_params is None:
         pts, colors, _normals, times = scene.scene_info.point_cloud
-        params, aux = create_from_pcd(pts, colors, times, cfg,
+        params, aux = create_from_pcd(pts, colors, times,
+                                      gaussian_config(args),
                                       seed=args.seed, device=device)
     else:
         params = init_params
@@ -63,13 +148,52 @@ def training(args, device, init_params=None, on_step=None):
     state = init_train_state(params, aux, init_raydrop_prior(h, w, device))
     bg = torch.tensor([1.0, 1.0, 1.0, 1.0] if args.white_background
                       else [0.0, 0.0, 0.0, 1.0], device=device)
-    train_step = make_train_step(args, cfg, raster_settings(args, h, w), bg)
+
+    first_iter = 0
+    if args.get("start_checkpoint"):
+        state, first_iter = load_train_state(args.start_checkpoint, device)
+        for _ in range(first_iter // args.scale_increase_interval):
+            scene.up_scale()
+
+    def build_fns(no_time_split):
+        w, h = scene.get_wh()
+        settings = raster_settings(args, h, w)
+        cfg = gaussian_config(args, no_time_split=no_time_split)
+        return (make_train_step(args, cfg, settings, bg),
+                make_densify_fn(args, cfg),
+                make_eval_render(args, cfg, settings, bg), cfg)
+
+    def event(iteration, name, info=None):
+        if on_event is not None:
+            on_event(iteration, name, state, info)
+
+    no_time_split = bool(args.no_time_split)
+    train_step, densify_fn, eval_render, cfg_now = build_fns(no_time_split)
 
     rng = np.random.default_rng(args.seed)
+    generator = torch.Generator(device=device).manual_seed(int(args.seed))
+    tb = _TensorBoard(os.path.join(args.model_path, "tb"))
     viewpoint_stack = []
     losses = []
     ema = 0.0
-    for iteration in range(1, args.iterations + 1):
+    t_start = time.time()
+    profile_at = int(args.get("profile_iter", 0))     # 0 = disabled
+    prof = None
+
+    for iteration in range(first_iter + 1, args.iterations + 1):
+        if profile_at and iteration == profile_at:
+            from torch.profiler import ProfilerActivity, profile
+            prof = profile(activities=[ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA]
+                if torch.device(device).type == "cuda" else []))
+            prof.start()
+        if prof is not None and iteration == profile_at + 5:
+            prof.stop()
+            out = os.path.join(args.model_path, "profile")
+            os.makedirs(out, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(out, "trace.json"))
+            prof = None
+            print(f"[profiler] trace written to {out}", flush=True)
         sh_degree = min(iteration // args.sh_increase_interval,
                         args.sh_degree)
         cams = scene.get_train_cameras()
@@ -80,51 +204,149 @@ def training(args, device, init_params=None, on_step=None):
             time_shift = 3 * (rng.random() - 0.5) * scene.time_interval
         else:
             time_shift = 0.0
-        # the densification window (densify_from_iter, densify_until_iter)
-        # is not reached, so its statistics stay off, as in the JAX loop
+
+        n_before = state.params["xyz"].shape[0]
+        in_window = in_densify_window(args, iteration, n_before)[0]
+        events = schedule(args, iteration, n_before, no_time_split)
         state, loss, log, grads = train_step(
             state, camera_to_batch(cam, device), iteration, sh_degree,
-            float(time_shift), stats_on=False)
+            float(time_shift), stats_on=in_window,
+            apply_update="densify" not in events)
         losses.append(loss)
         if on_step is not None:
             on_step(iteration, state, loss, log, grads)
+
+        # flip time-split mode (reference train.py:356-357)
+        if "flip" in events:
+            no_time_split = False
+            train_step, densify_fn, eval_render, cfg_now = build_fns(
+                no_time_split)
+            event(iteration, "flip")
+
+        if "densify" in events:
+            size_on = (iteration > args.opacity_reset_interval
+                       and args.prune_big_point > 0)
+            size_threshold = (args.size_threshold
+                              // scene.resolution_scales[0]
+                              if size_on else None)
+            t0 = time.perf_counter()
+            state, counts = densify_fn(state, generator,
+                                       float(scene.cameras_extent),
+                                       size_threshold)
+            counts["ms"] = (time.perf_counter() - t0) * 1e3
+            counts["world_size_prune"] = size_on
+            print(f"[{iteration}] densify: {counts['before']} -> "
+                  f"{counts['after']} gaussians (never visible "
+                  f"-{counts['never_visible']}, clones {counts['clones']}, "
+                  f"splits {counts['splits']}, new +{counts['new']}, "
+                  f"opacity -{counts['opacity_pruned']}, world size "
+                  f"-{counts['world_size_pruned']}) in "
+                  f"{counts['ms']:.1f} ms", flush=True)
+            event(iteration, "densify", counts)
+
+        if "reset" in events:
+            state = reset_opacity_state(state, cfg_now)
+            event(iteration, "reset")
+
         if iteration % 10 == 0 or iteration == 1:
             ema = 0.4 * float(loss) + 0.6 * ema
+            n_now = state.params["xyz"].shape[0]
+            rate = (iteration - first_iter) / max(time.time() - t_start, 1e-9)
             print(f"[{iteration}/{args.iterations}] loss={ema:.5f} "
-                  f"pts={params['xyz'].shape[0]} "
-                  f"instances={log['num_pairs']}", flush=True)
+                  f"pts={n_now} instances={log['num_pairs']} "
+                  f"it/s={rate:.2f}", flush=True)
+            tb.scalars(iteration, log, n_now)
+
+        if iteration in args.test_iterations:
+            print(f"[{iteration}] eval at test_iterations is not ported to "
+                  f"gslidar_tpu_torch yet: no metrics", flush=True)
+            event(iteration, "eval")
+
+        if iteration % args.vis_step == 0 or iteration == 1:
+            pkg = eval_render(state.params, state.aux.alive, state.prior,
+                              camera_to_batch(cam, device), sh_degree)
+            imgs = [visualize_depth(pkg.depth.cpu().numpy(),
+                                    scale_factor=args.scale_factor)]
+            if cam.pts_depth is not None:
+                imgs.append(visualize_depth(cam.pts_depth,
+                                            scale_factor=args.scale_factor))
+            save_image(make_image_grid(imgs, nrow=2),
+                       os.path.join(vis_path, f"{iteration:05d}_"
+                                              f"{cam.colmap_id:03d}.png"))
+            event(iteration, "vis")
+
+        if "upscale" in events:
+            scene.up_scale()
+            next_w, next_h = scene.get_wh()
+            prior = raydrop_prior_upscale(state.prior, next_h, next_w)
+            state = state._replace(prior=prior,
+                                   prior_opt=PriorAdam.init(prior))
+            train_step, densify_fn, eval_render, cfg_now = build_fns(
+                no_time_split)
+            event(iteration, "upscale")
+
+        if "checkpoint" in events:
+            print(f"\n[ITER {iteration}] Saving Checkpoint", flush=True)
+            path = checkpoint_path(args.model_path, iteration)
+            t0 = time.perf_counter()
+            save_checkpoint(path, state, iteration)
+            event(iteration, "checkpoint", dict(
+                path=path, seconds=time.perf_counter() - t0,
+                bytes=os.path.getsize(path)))
+
+    if prof is not None:
+        prof.stop()
+    tb.close()
     return state, scene, [float(x) for x in losses]
 
 
 def load_args(config, base_config="configs/base.yaml", overrides=()):
     """The run's config: base_config <- config <- ``key=val`` overrides,
-    merged as the root train.py merges them (t_grad off for a static
-    scene)."""
+    merged as the root train.py merges them: t_grad off for a static
+    scene, ``iterations`` appended to the test and checkpoint
+    iterations."""
     from gslidar_tpu_torch.config import Config, load_run_config
     args = load_run_config(base_config, config, list(overrides))
     if not args.dynamic:
         Config.update(args, "t_grad", False)
+    for k in ("checkpoint_iterations", "test_iterations"):
+        Config.update(args, k, list(args[k]) + [args.iterations])
     return args
 
 
 def main(argv=None):
+    from gslidar_tpu_torch.config import Config
     from gslidar_tpu_torch.utils.general import seed_everything
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--config", required=True)
     parser.add_argument("--base_config", default="configs/base.yaml")
+    parser.add_argument("--start_checkpoint", default=None)
     parser.add_argument("--device", default="cuda")
     known, rest = parser.parse_known_args(argv)
     args = load_args(known.config, known.base_config, rest)
+    Config.update(args, "start_checkpoint", known.start_checkpoint)
     device = torch.device(known.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to train with "
                          "the plain PyTorch compositors")
     torch.backends.cuda.matmul.allow_tf32 = False
+
+    os.makedirs(args.model_path, exist_ok=True)
+    print("Optimizing " + args.model_path)
+    with open(os.path.join(args.model_path, "setting.txt"), "w") as f:
+        f.write("------------------ start ------------------\n")
+        for k, v in args.items():
+            f.write(f"{k} : {v}\n")
+        f.write("------------------- end -------------------")
     seed_everything(args.seed)
     state, _, losses = training(args, device)
-    print(f"trained {len(losses)} steps of {state.params['xyz'].shape[0]} "
-          f"gaussians: loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+    if losses:
+        print(f"trained {len(losses)} steps to {state.params['xyz'].shape[0]}"
+              f" gaussians: loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+    else:
+        print(f"nothing to train: the checkpoint is at iteration "
+              f"{args.iterations}")
 
 
 if __name__ == "__main__":

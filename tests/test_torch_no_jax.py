@@ -7,7 +7,8 @@ smoke test refuses to run without a card.
   a gslidar_tpu checkpoint of a tiny Synthetic scene on the CPU in a
   subprocess where ``import jax`` and ``import gslidar_tpu`` fail;
 * the training entry point, ``python -m gslidar_tpu_torch.train``, trains
-  a tiny Synthetic scene for a few steps on the CPU the same way;
+  a tiny Synthetic scene on the CPU the same way, past a densify, and
+  writes a checkpoint that gslidar_tpu reads;
 * ``python3 chip_smoke.py`` with CUDA hidden exits non-zero with a clear
   message and prints no result line.
 """
@@ -112,11 +113,20 @@ def test_render_cli_runs_without_jax(tmp_path):
 
 
 def test_train_cli_runs_without_jax(tmp_path):
+    """12 steps past densify_from_iter, with a densify at 8 and the
+    checkpoint at 12, which gslidar_tpu's load_checkpoint then reads."""
+    import jax
+    from gslidar_tpu.engine.checkpoint import load_checkpoint
+    from gslidar_tpu.engine.train import init_train_state
+    from gslidar_tpu.models import gaussians as G
+    from gslidar_tpu.models.raydrop_prior import init_raydrop_prior
+    run = tmp_path / "run"
     argv = ["-m", "gslidar_tpu_torch.train",
             "--config", os.path.join(REPO, "configs", "synthetic_smoke.yaml"),
             "--base_config", os.path.join(REPO, "configs", "base.yaml"),
-            "--device", "cpu", "iterations=3", "hw=[16,64]", "frames=4",
-            "num_pts=1500", f"model_path={tmp_path / 'run'}"]
+            "--device", "cpu", "iterations=12", "densify_from_iter=4",
+            "densification_interval=4", "densify_until_iter=10",
+            "hw=[16,64]", "frames=4", "num_pts=1500", f"model_path={run}"]
     code = (BLOCK_JAX + "import runpy, torch; torch.set_num_threads(2); "
             f"sys.argv = {argv!r}; "
             "runpy.run_module('gslidar_tpu_torch.train', "
@@ -126,8 +136,24 @@ def test_train_cli_runs_without_jax(tmp_path):
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "NO_JAX_OK" in r.stdout
-    assert "trained 3 steps of 1500 gaussians" in r.stdout, r.stdout
-    assert (tmp_path / "run" / "scale_factor.txt").exists()
+    assert "[8] densify: 1500 -> " in r.stdout, r.stdout
+    m = re.search(r"trained 12 steps to (\d+) gaussians", r.stdout)
+    assert m, r.stdout
+    assert (run / "scale_factor.txt").exists()
+    assert (run / "setting.txt").exists()
+    assert os.listdir(run / "visualization")
+    # gslidar_tpu reads the checkpoint; the template only gives the tree
+    p, a = G.create_from_pcd(np.zeros((4, 3), np.float32),
+                             np.zeros((4, 3), np.float32), None,
+                             G.GaussianConfig(random_init_point=0))
+    state, it = load_checkpoint(str(run / "ckpt" / "chkpnt12.npz"),
+                                init_train_state(p, a,
+                                                 init_raydrop_prior(16, 64)))
+    n = int(m.group(1))
+    assert it == 12 and state.params["xyz"].shape == (n, 3)
+    assert bool(state.aux.alive.all()) and int(state.opt.count) == 11
+    assert all(bool(jax.numpy.isfinite(x).all())
+               for x in jax.tree.leaves(state.params))
 
 
 def test_chip_smoke_fails_without_a_card():
