@@ -51,7 +51,10 @@ failing phase raises:
    move (the loop's depth-visualization renders are counted apart); then
    ``python -m gslidar_tpu_torch.train`` on configs/synthetic_smoke.yaml
    for 110 steps in a subprocess (scene, ``create_from_pcd``, the CLI, its
-   densify at 100 and its checkpoint at 110);
+   densify at 100, its checkpoint, final eval and ray-drop datasets at
+   110, 60 refine epochs and refine_test), read from its log.txt, with
+   eval/test_110_render/metrics.json, ckpt/refine.npz and
+   eval/test_refine_render/metrics.json written;
 7. one full-size training step (iteration 7001, every loss schedule on,
    densification statistics on): the forward kernel and its checkpoints
    against the plain version, and the backward kernel against its plain
@@ -97,11 +100,29 @@ failing phase raises:
    rows' moments are 0 and the printed counts add up; the step after the
    densify at 8 holds both kernels against their plain versions at phase
    7's bars; chkpnt12 and chkpnt16 are written, and a resume from
-   chkpnt12 to 14 loads every leaf bit for bit as saved and takes 2 steps.
-   It prints each densify's counts and time (CUDA events), the median step
-   time between densifies, the checkpoints' size and save and load
-   seconds, and the peak memory;
-11. the result: the card's nvidia-smi line, one JSON line of the kernels,
+   chkpnt12 to 14 loads every leaf bit for bit as saved and takes 2 steps;
+   each run ends in its final eval (``complete_eval`` at the last
+   iteration, which ``load_args`` appends to test_iterations), at 16 and
+   at the resume's 14. It prints each densify's counts and time (CUDA
+   events), the median step time between densifies, the checkpoints' size
+   and save and load seconds, the evals' seconds and the peak memory;
+11. eval and refine at full width, on phase 4's seeded 1M-gaussian model
+   over the Synthetic scene's 2 test and 6 train pairs (66x1030
+   panoramas): ``complete_eval(is_final=True, save_raydrop_data=True)``
+   through ``make_eval_render360`` must launch the forward kernel once
+   per pair, hold the first eval render's forward kernel against its
+   plain version at phase 3's bars, write the 8 + 6 + 2 ray-drop arrays
+   and metrics.json files whose values are finite, LPIPS null; a second
+   eval of the test pairs with seeded random LPIPS weights under
+   GSLIDAR_LPIPS_WEIGHTS, where LPIPS on the card must equal the same call
+   on the CPU within 1e-4 relative; ``refine`` for kitti360_nvs_1908's
+   refine_epochs (1000) on the 6 train renders, whose loss must be finite
+   and lower at the last print than at the first, the U-Net's eval-mode
+   forward on the card within 1e-4 absolute of the CPU's; ``refine_test``.
+   It prints per pair the ms of the render, ``_depth3``, the host copies,
+   each meter and the chamfer, the eval's seconds, ms per refine epoch
+   (CUDA events), the refine and refine_test seconds and the peak memory;
+12. the result: the card's nvidia-smi line, one JSON line of the kernels,
    and the last line ``{"ok": true, "device": {...}}``.
 
 Tolerances, forward kernel vs plain: color, features, normal, alpha and
@@ -958,7 +979,9 @@ def phase_train(device, init_params):
 def phase_train_cli():
     """``python -m gslidar_tpu_torch.train`` as a user runs it: the scene,
     create_from_pcd and CLI_STEPS steps of configs/synthetic_smoke.yaml,
-    past its densify at 100 to the checkpoint at CLI_STEPS."""
+    past its densify at 100 to the checkpoint and the final eval at
+    CLI_STEPS, then its refine_epochs of refinement and refine_test; the
+    log is read from the run's log.txt."""
     import shutil
     import sys
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -971,18 +994,37 @@ def phase_train_cli():
     r = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
                        text=True, timeout=600)
     wall_s = time.perf_counter() - t0
-    lines = r.stdout.strip().splitlines() or [""]
+    log_path = os.path.join(run, "log.txt")
+    lines = [""]
+    if os.path.exists(log_path):
+        with open(log_path) as f:
+            lines = f.read().strip().splitlines() or [""]
     densify = [ln for ln in lines if "] densify:" in ln]
+    trained = [ln for ln in lines if ln.startswith("trained ")] or [""]
+    evals = [ln for ln in lines if ln.startswith((f"[ITER {CLI_STEPS}] "
+                                                  "eval", "[refine]"))]
+    refine_loss = [float(ln.split()[-1]) for ln in lines
+                   if ln.startswith("refine iter")]
     ckpt = os.path.join(run, "ckpt", f"chkpnt{CLI_STEPS}.npz")
-    say(6, f"training CLI: rc {r.returncode} in {wall_s:.1f} s | "
-           f"{' | '.join(densify)} | {lines[-1]} | checkpoint "
+    need = [os.path.join(run, "eval", f"test_{CLI_STEPS}_render",
+                         "metrics.json"),
+            os.path.join(run, "ckpt", "refine.npz"),
+            os.path.join(run, "eval", "test_refine_render", "metrics.json")]
+    say(6, f"training CLI: rc {r.returncode} in {wall_s:.1f} s, log in "
+           f"log.txt ({len(lines)} lines) | {' | '.join(densify)} | "
+           f"{trained[-1]} | checkpoint "
            f"{os.path.getsize(ckpt) if os.path.exists(ckpt) else 'MISSING'}"
-           f" bytes")
-    if (r.returncode != 0 or f"trained {CLI_STEPS} steps" not in lines[-1]
+           f" bytes | {' | '.join(evals)} | refine loss by 50 epochs "
+           f"{refine_loss} | present: "
+           f"{[os.path.relpath(q, run) for q in need if os.path.exists(q)]}")
+    if (r.returncode != 0 or f"trained {CLI_STEPS} steps" not in trained[-1]
             or not any(ln.startswith("[100] densify:") for ln in densify)
-            or not os.path.exists(ckpt)):
-        raise RuntimeError(f"the training CLI failed:\n{r.stdout[-2000:]}\n"
-                           f"{r.stderr[-3000:]}")
+            or not os.path.exists(ckpt)
+            or not all(os.path.exists(q) for q in need)
+            or "Refine complete." not in lines):
+        raise RuntimeError(f"the training CLI failed:\n"
+                           f"{chr(10).join(lines[-40:])}\n{r.stdout[-2000:]}"
+                           f"\n{r.stderr[-3000:]}")
     shutil.rmtree(run, ignore_errors=True)
 
 
@@ -1026,7 +1068,7 @@ def phase_train_densify(device, init_params, smi):
     random.seed(SEED)
     np.random.seed(SEED)
     rec = dict(n={}, events={}, step_ms={}, densify={}, ckpt={},
-               upscale={})
+               upscale={}, eval_s={})
     bad, cuda_ms, held = [], [], {}
     capture = dict(armed=False)
     bwd_orig, make_orig = co.composite_backward, T.make_densify_fn
@@ -1120,6 +1162,10 @@ def phase_train_densify(device, init_params, smi):
         elif name == "checkpoint":
             rec["ckpt"][iteration] = info
             held[iteration] = state
+        elif name == "eval":                  # the final eval, whole
+            torch.cuda.synchronize()
+            rec["eval_s"][iteration] = (time.perf_counter() - rec["t"],
+                                        sorted(info))
         mark()
 
     torch.cuda.reset_peak_memory_stats()
@@ -1205,9 +1251,22 @@ def phase_train_densify(device, init_params, smi):
     composite_forward.launches = 0
     composite_backward.launches = 0
     steps = StepLaunches()
+
+    def on_resume_event(iteration, name, state, info):
+        steps.skip()
+        if name == "eval":
+            torch.cuda.synchronize()
+            rec["eval_s"][f"resume {iteration}"] = (
+                time.perf_counter() - rec["t"], sorted(info))
+        rec["t"] = time.perf_counter()
+
+    def on_resume_step(*a):
+        steps.step()
+        mark()
+    mark()
     r_losses = T.training(resume, device, init_params=init_params,
-                          on_step=lambda *a: steps.step(),
-                          on_event=lambda *a: steps.skip())[2]
+                          on_step=on_resume_step,
+                          on_event=on_resume_event)[2]
     say(10, "checkpoints: " + ", ".join(
         f"{it}: {c['bytes']} bytes saved in {c['seconds']:.2f} s"
         for it, c in sorted(rec["ckpt"].items()))
@@ -1215,6 +1274,10 @@ def phase_train_densify(device, init_params, smi):
           f"saved: {same} | resume to {RESUME_ITERATIONS}: "
           f"{len(r_losses)} steps, launches per step {steps.per_step}, loss "
           f"{[round(x, 5) for x in r_losses]}")
+    say(10, "the final evals (complete_eval at test_iterations' appended "
+            "last iteration; host clock, synchronised): " + ", ".join(
+                f"{it}: {sec:.2f} s ({'+'.join(splits)})"
+                for it, (sec, splits) in rec["eval_s"].items()))
     files = {it: os.path.exists(os.path.join(run, "ckpt",
                                              f"chkpnt{it}.npz"))
              for it in (12, DENSIFY_ITERATIONS)}
@@ -1226,10 +1289,274 @@ def phase_train_densify(device, init_params, smi):
             or rec.get("kernels_checked") != 9
             or not all(files.values()) or not same
             or len(r_losses) != RESUME_ITERATIONS - 12
-            or not all(math.isfinite(x) for x in r_losses)):
+            or not all(math.isfinite(x) for x in r_losses)
+            or sorted(rec["eval_s"], key=str) != sorted(
+                [DENSIFY_ITERATIONS, f"resume {RESUME_ITERATIONS}"],
+                key=str)):
         raise RuntimeError(f"the densification run failed its checks: "
                            f"events off the schedule {wrong}, {bad}, "
                            f"checkpoints {files}, resume bitwise {same}")
+
+
+# --------------------------------------------------------------- phase 11
+def write_lpips_weights(path, seed):
+    """Seeded random AlexNet-LPIPS weights in the converted-npz layout
+    (``conv{i}_w/b``, ``lin{i}_w``), as tests/test_eval.py writes them."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    w = {}
+    for i, (cin, cout, k) in enumerate([(3, 64, 11), (64, 192, 5),
+                                        (192, 384, 3), (384, 256, 3),
+                                        (256, 256, 3)]):
+        w[f"conv{i}_w"] = (rng.normal(size=(cout, cin, k, k)) * 0.05).astype(
+            np.float32)
+        w[f"conv{i}_b"] = np.zeros(cout, np.float32)
+        w[f"lin{i}_w"] = rng.uniform(0, 1, (1, cout, 1, 1)).astype(
+            np.float32)
+    np.savez(path, **w)
+
+
+class EvalClock:
+    """Per pair of a ``complete_eval``, the host-clock ms (the card
+    synchronised at each edge) of the render, ``_depth3`` and the host
+    copies, each meter's update and the chamfer, by wrapping the
+    functions and meter classes that ``engine.evaluate`` and
+    ``utils.metrics`` call."""
+
+    def __init__(self):
+        self.pairs = []
+
+    def timed(self, name, fn, new_pair=False):
+        import torch
+
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if new_pair:
+                self.pairs.append(dict(start=t0))
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            rec = self.pairs[-1]
+            rec[name] = rec.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            rec["end"] = time.perf_counter()
+            return out
+        return wrapped
+
+    def meter(self, cls):
+        clock = self
+
+        class Timed(cls):
+            def update(self, *a):
+                return clock.timed(cls.__name__, super().update)(*a)
+        return Timed
+
+    def summary(self):
+        keys = [k for k in self.pairs[0] if k not in ("start", "end")]
+        out = {k: [round(p.get(k, 0.0), 3) for p in self.pairs]
+               for k in keys}
+        out["pair total"] = [round((p["end"] - p["start"]) * 1e3, 3)
+                             for p in self.pairs]
+        return out
+
+
+def phase_eval_refine(args, params, alive, prior, smi):
+    """Eval and ray-drop refinement at full width on phase 4's seeded
+    1M-gaussian model: ``complete_eval`` over the Synthetic scene's 2
+    test and 6 train pairs (66x1030 panoramas), with LPIPS first absent
+    and then from seeded random weights; ``refine`` on the 6 train renders
+    for the base config's refine_epochs; ``refine_test``."""
+    import math
+    import random
+    import shutil
+    import types
+    import numpy as np
+    import torch
+    import gslidar_tpu_torch.engine.evaluate as E
+    import gslidar_tpu_torch.raster.composite_op as co
+    import gslidar_tpu_torch.utils.metrics as M
+    from gslidar_tpu_torch.config import load_run_config
+    from gslidar_tpu_torch.engine.refine import (_load_unet, refine,
+                                                 refine_test)
+    from gslidar_tpu_torch.raster.composite_fwd import composite_forward
+    from gslidar_tpu_torch.render import (build_scene, gaussian_config,
+                                          raster_settings)
+    from gslidar_tpu_torch.utils.lpips import load_lpips
+
+    device = alive.device
+    run = os.path.join(REPO, "build", "chip_smoke_eval")
+    shutil.rmtree(run, ignore_errors=True)
+    os.makedirs(run)
+    epochs = int(load_run_config(os.path.join(REPO, "configs", "base.yaml"),
+                                 os.path.join(REPO, "configs",
+                                              "kitti360_nvs_1908.yaml"),
+                                 []).refine_epochs)
+    eargs = Args(args, model_path=run, refine_epochs=epochs)
+    random.seed(SEED)
+    np.random.seed(SEED)
+    scene = build_scene(eargs)
+    n_pairs = (len(scene.get_test_cameras(1)) // 2,
+               len(scene.get_train_cameras()) // 2)
+    h, w = HW
+    cfg = gaussian_config(eargs)
+    settings = raster_settings(eargs, h, w)
+    bg = torch.tensor([0.0, 0.0, 0.0, 1.0], device=device)
+    state = types.SimpleNamespace(params=params, prior=prior,
+                                  aux=types.SimpleNamespace(alive=alive))
+    ev = E.make_eval_render(eargs, cfg, settings, bg)
+    ev360 = E.make_eval_render360(eargs, cfg, settings, bg)
+    clock = EvalClock()
+    capture = {}
+    fwd_orig = co.composite_forward
+
+    def fwd_keep(*a):
+        capture.setdefault("fwd", a)
+        return fwd_orig(*a)
+
+    saved = (E._depth3, E._np, M.chamfer_distance, co.composite_forward,
+             E.RaydropMeter, E.IntensityMeter, E.DepthMeter, E.PointsMeter)
+    E._depth3 = clock.timed("_depth3", E._depth3)
+    E._np = clock.timed("host copies", E._np)
+    M.chamfer_distance = clock.timed("chamfer", M.chamfer_distance)
+    co.composite_forward = fwd_keep
+    for name in ("RaydropMeter", "IntensityMeter", "DepthMeter",
+                 "PointsMeter"):
+        setattr(E, name, clock.meter(getattr(M, name)))
+    os.environ.pop("GSLIDAR_LPIPS_WEIGHTS", None)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        composite_forward.launches = 0
+        t0 = time.perf_counter()
+        results = E.complete_eval(
+            0, eargs, scene, state, SH_DEGREE, ev, is_final=True,
+            save_raydrop_data=True,
+            eval_render360=clock.timed("render", ev360, new_pair=True))
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        launches = composite_forward.launches
+        peak = {"eval": torch.cuda.max_memory_allocated() / 2 ** 30}
+    finally:
+        (E._depth3, E._np, M.chamfer_distance, co.composite_forward,
+         E.RaydropMeter, E.IntensityMeter, E.DepthMeter,
+         E.PointsMeter) = saved
+
+    # one eval render's forward kernel against its plain version
+    rows, starts, params8, st, C, S = capture.pop("fwd")[:6]
+    ok_f, summ_f, _, _ = run_pair(rows, starts, params8, st, C, S)
+    composite_forward.launches = launches
+    say(11, f"forward kernel vs plain on the first eval render "
+            f"({rows.shape[0]} instances, {st.height}x{st.width}): "
+            f"{'ok' if ok_f else 'FAIL'} {json.dumps(summ_f)}")
+    del rows, starts
+
+    def values(m):
+        return [v for d in m.values() if isinstance(d, dict)
+                for v in d.values()]
+    parsed = {}
+    for split in ("test", "train"):
+        with open(os.path.join(run, "eval", f"{split}_0_render",
+                               "metrics.json")) as f:
+            parsed[split] = json.load(f)
+    finite = all(all(v is None or math.isfinite(v) for v in values(m))
+                 and m["Depth"]["LPIPS"] is None
+                 and m["Intensity SH"]["LPIPS"] is None
+                 and sum(v is None for v in values(m)) == 2
+                 for m in parsed.values())
+    saved_npy = {sub: len(os.listdir(os.path.join(run, "ray_drop_datasets",
+                                                  sub)))
+                 for sub in ("gt", "render_train", "render_test")}
+    times = clock.summary()
+    say(11, f"complete_eval on {smi}: {sum(n_pairs)} pairs ({n_pairs[0]} "
+            f"test, {n_pairs[1]} train) of {NUM_GAUSSIANS} gaussians at "
+            f"{h}x{2 * w}, {eval_s:.2f} s | forward launches {launches} | "
+            f"ray_drop_datasets {saved_npy} | metrics finite, LPIPS null: "
+            f"{finite} | test {json.dumps(parsed['test'])}")
+    say(11, "per pair, ms (host clock, synchronised): " + " | ".join(
+        f"{k} {v}" for k, v in times.items()))
+
+    # LPIPS from seeded random weights: the card against the CPU
+    lp_path = os.path.join(run, "lpips_random.npz")
+    write_lpips_weights(lp_path, SEED + 11)
+    os.environ["GSLIDAR_LPIPS_WEIGHTS"] = lp_path
+    try:
+        t0 = time.perf_counter()
+        lp_res = E.complete_eval(1, eargs, scene, state, SH_DEGREE, ev,
+                                 eval_render360=ev360)["test"]
+        torch.cuda.synchronize()
+        lp_eval_s = time.perf_counter() - t0
+    finally:
+        os.environ.pop("GSLIDAR_LPIPS_WEIGHTS")
+    x = np.load(os.path.join(run, "ray_drop_datasets", "render_test",
+                             sorted(os.listdir(os.path.join(
+                                 run, "ray_drop_datasets",
+                                 "render_test")))[0]))
+    g = np.load(os.path.join(run, "ray_drop_datasets", "gt",
+                             sorted(os.listdir(os.path.join(
+                                 run, "ray_drop_datasets",
+                                 "render_test")))[0]))
+    a = np.clip(x[[2]] / float(eargs.scale_factor), 1e-6, 80.0)
+    b = np.clip(g[[2]] / float(eargs.scale_factor), 1e-6, 80.0)
+    lp_gpu = load_lpips(lp_path, device)(a, b)
+    lp_cpu = load_lpips(lp_path, "cpu")(a, b)
+    lp_rel = abs(lp_gpu - lp_cpu) / abs(lp_cpu)
+    lp_ok = (lp_rel <= 1e-4 and lp_res["Depth"]["LPIPS"] is not None
+             and math.isfinite(lp_res["Depth"]["LPIPS"]))
+    say(11, f"LPIPS with seeded random weights: eval of the 2 test pairs "
+            f"{lp_eval_s:.2f} s, Depth LPIPS {lp_res['Depth']['LPIPS']}, "
+            f"Intensity LPIPS {lp_res['Intensity SH']['LPIPS']} | one "
+            f"depth panorama on the card {lp_gpu!r}, on the CPU {lp_cpu!r}, "
+            f"relative difference {lp_rel:.3g} (bar 1e-4)")
+
+    # refine on the 6 train renders, then refine_test
+    ev_t = []
+
+    def on_epoch(i, loss):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        ev_t.append(e)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, printed = refine(eargs, device, on_epoch=on_epoch)
+    torch.cuda.synchronize()
+    refine_s = time.perf_counter() - t0
+    peak["refine"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del model
+    epoch_ms = ev_t[0].elapsed_time(ev_t[-1]) / max(len(ev_t) - 1, 1)
+    xs = np.stack([np.load(os.path.join(run, "ray_drop_datasets",
+                                        "render_test", n))
+                   for n in sorted(os.listdir(os.path.join(
+                       run, "ray_drop_datasets", "render_test")))])
+    with torch.no_grad():
+        u_gpu = _load_unet(eargs, device)(
+            torch.as_tensor(xs, device=device)).cpu().numpy()
+        u_cpu = _load_unet(eargs, "cpu")(torch.as_tensor(xs)).numpy()
+    u_err = float(np.abs(u_gpu - u_cpu).max())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rt = refine_test(eargs, device)
+    torch.cuda.synchronize()
+    refine_test_s = time.perf_counter() - t0
+    peak["refine_test"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [v for _, v in printed]
+    refine_ok = (len(ev_t) == epochs and all(map(math.isfinite, losses))
+                 and len(losses) >= 2 and losses[-1] < losses[0])
+    say(11, f"refine on {smi}: {epochs} epochs on "
+            f"{n_pairs[1]} train renders [{n_pairs[1]}, 3, {h}, {2 * w}], "
+            f"{epoch_ms:.3f} ms per epoch (CUDA events, epochs 2-{epochs}),"
+            f" {refine_s:.2f} s in all | loss by 50 epochs "
+            f"{[round(v, 5) for v in losses]} | U-Net eval forward, card vs "
+            f"CPU on {len(xs)} test renders: max abs {u_err:.3g} (bar 1e-4)"
+            f" | refine_test {refine_test_s:.2f} s: test "
+            f"{json.dumps(rt['test'])} | peak memory (GiB) "
+            f"{ {k: round(v, 2) for k, v in peak.items()} }")
+    shutil.rmtree(run, ignore_errors=True)
+    if not (ok_f and launches == sum(n_pairs) and n_pairs == (2, 6)
+            and finite and lp_ok and refine_ok and u_err <= 1e-4
+            and sorted(results) == ["test", "train"]
+            and saved_npy == {"gt": 8, "render_train": 6, "render_test": 2}
+            and sorted(rt) == ["test", "train"]):
+        raise RuntimeError("eval and refine failed their checks")
+    return summ_f["raw_max_abs_err"], launches
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1675,6 +2002,7 @@ def main():
                            works7["backward"], clock_hz,
                            med7["backward kernel"])
     phase_train_densify(device, params, smi)
+    err11, _ = phase_eval_refine(args, params, alive, prior, smi)
     del params, alive, prior, cams, scene
     torch.cuda.empty_cache()
     gather = phase_gather(device)
@@ -1684,7 +2012,7 @@ def main():
         "name": "composite_fwd", "route": "cuda",
         "source": "gslidar_tpu_torch/csrc/composite_fwd.cu",
         "replaces": "gslidar_tpu/raster/pallas_fwd.py:282",
-        "launches": launches[0], "max_abs_err": max(err3, err5),
+        "launches": launches[0], "max_abs_err": max(err3, err5, err11),
         "ms": med["kernel"], "plain_ms": med["plain"],
         "bound_ms": bound_fwd.ms, "bound_by": bound_fwd.bound_by,
         "library_ms": None}, {

@@ -7,6 +7,7 @@ each point's nearest neighbour; the distance is then recomputed exactly
 from the coordinate differences, so its gradient is the exact 2(a - b)
 of the CUDA backward (chamfer3D.cu:167-196). The points come masked, as
 fixed-size [H*W, 3] panorama clouds; only the valid ones are compared.
+``fscore`` is the F-score the eval meters report (chamfer/fscore.py).
 """
 
 from __future__ import annotations
@@ -55,3 +56,23 @@ def chamfer_distance(x1, x2, mask1=None, mask2=None, chunk: int = 4096):
     n1 = torch.clamp_min(mask1.sum(), 1)
     n2 = torch.clamp_min(mask2.sum(), 1)
     return d1, d2, d1.sum() / n1, d2.sum() / n2
+
+
+def fscore(dist1, dist2, mask1=None, mask2=None, threshold: float = 0.05):
+    """F-score at ``threshold`` from ``chamfer_distance``'s squared
+    distances (the threshold applies to squared distances, as in the
+    reference's chamfer/fscore.py:4-18); 0 when both precisions are 0.
+    Returns (fscore, precision_1, precision_2) as 0-d tensors."""
+    if mask1 is None:
+        mask1 = torch.ones(dist1.shape[0], dtype=torch.bool,
+                           device=dist1.device)
+    if mask2 is None:
+        mask2 = torch.ones(dist2.shape[0], dtype=torch.bool,
+                           device=dist2.device)
+    n1 = torch.clamp_min(mask1.sum(), 1)
+    n2 = torch.clamp_min(mask2.sum(), 1)
+    precision_1 = ((dist1 < threshold) & mask1).sum() / n1
+    precision_2 = ((dist2 < threshold) & mask2).sum() / n2
+    f = 2 * precision_1 * precision_2 / (precision_1 + precision_2)
+    return (torch.where(precision_1 + precision_2 > 0, f, 0.0),
+            precision_1, precision_2)

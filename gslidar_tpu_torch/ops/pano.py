@@ -53,6 +53,14 @@ def pano_to_lidar(range_image: torch.Tensor, vfov, hfov):
     return pts, mask
 
 
+def pano_to_lidar_np(range_image: np.ndarray, vfov, hfov) -> np.ndarray:
+    """The valid points of a numpy range panorama [1, H, W], as numpy
+    [N, 3] float32 (the ragged variant for exports such as .ply files)."""
+    pts, mask = pano_to_lidar(
+        torch.as_tensor(np.asarray(range_image, np.float32)), vfov, hfov)
+    return pts[mask].numpy()
+
+
 def depth_to_normal(range_image: torch.Tensor, vfov, hfov) -> torch.Tensor:
     """Central-difference normals of a range panorama [1, H, W] -> [3, H, W]
     with a zero border ring (utils/graphics_utils.py:121-149)."""

@@ -12,6 +12,7 @@ this matrix (forward.cu:73-113).
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple
 
@@ -30,6 +31,23 @@ def check_full_f32_matmul(device) -> None:
             torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 is True; "
                            "the splat geometry needs full f32 matmuls")
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Full-f32 convolutions and matmuls on a card inside the block: TF32
+    off for cuDNN and cuBLAS (PyTorch's default runs float32 convs in TF32,
+    where the JAX package pins ``Precision.HIGHEST`` or runs float32 on
+    the CPU); the settings are restored on exit."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
 
 
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,13 @@
-"""Train a scene on the GPU.
+"""Train a scene on the GPU, evaluate it and refine its ray drop.
 
     python -m gslidar_tpu_torch.train --config configs/<scene>.yaml \
         [--base_config configs/base.yaml] [--device cuda|cpu] \
-        [--start_checkpoint <model_path>/ckpt/chkpnt<it>.npz] [key=val ...]
+        [--start_checkpoint <model_path>/ckpt/chkpnt<it>.npz] \
+        [--test_only] [--median_depth] [--skip_refine] [--show_log] \
+        [key=val ...]
 
 The port's counterpart of the root ``train.py`` (``training``, train.py:
-95-469, and its entry, :472-551). It builds the scene, initializes the
+95-469, and its entry, :472-560). It builds the scene, initializes the
 gaussians from its point cloud (``create_from_pcd``) and the ray-drop
 prior, and trains from iteration 1 (or the checkpoint's) to
 ``iterations``, in the JAX loop's order within an iteration:
@@ -18,19 +20,30 @@ prior, and trains from iteration 1 (or the checkpoint's) to
   prune once past the first opacity reset (:334-344), and the opacity
   reset (:356-359) under the JAX loop's own conditions;
 * the log every 10 steps, to stdout and, when ``tensorboardX`` imports,
-  to TensorBoard (:361-429); the depth visualization every ``vis_step``
-  (:438-449); the coarse-to-fine step (:451-459) and the checkpoints
-  (:461-464), which gslidar_tpu's ``load_checkpoint`` reads.
+  to TensorBoard (:361-429); ``complete_eval`` at ``test_iterations``,
+  the last one also writing ``ray_drop_datasets/`` (:431-436); the depth
+  visualization every ``vis_step`` (:438-449); the coarse-to-fine step
+  (:451-459) and the checkpoints (:461-464), which gslidar_tpu's
+  ``load_checkpoint`` reads.
+
+Then, unless ``--skip_refine``, the ray-drop U-Net trains on the final
+eval's renders (``refine``, skipped under ``--test_only``) and is scored
+(``refine_test``). ``--test_only`` evaluates the newest checkpoint of
+``checkpoint_iterations`` at the resolution it was trained at.
+``--median_depth`` renders the median depth as the mean. Unless
+``--show_log``, stdout and stderr go to ``<model_path>/log.txt``.
 
 The tensors are sized exactly, so the JAX loop's capacity growth and
-instance caps have no counterpart. Evaluation at ``test_iterations`` is
-not ported yet: such an iteration prints a line that says so.
+instance caps have no counterpart.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
+import shutil
+import sys
 import time
 
 import numpy as np
@@ -39,7 +52,9 @@ import torch
 from gslidar_tpu_torch.engine.checkpoint import (checkpoint_path,
                                                  load_train_state,
                                                  save_checkpoint)
-from gslidar_tpu_torch.engine.evaluate import make_eval_render
+from gslidar_tpu_torch.engine.evaluate import (complete_eval,
+                                               make_eval_render,
+                                               make_eval_render360)
 from gslidar_tpu_torch.engine.train import (camera_to_batch,
                                             init_train_state,
                                             make_densify_fn, make_train_step,
@@ -126,8 +141,10 @@ def training(args, device, init_params=None, on_step=None, on_event=None):
     state, info)`` after each event of the loop: "flip", "densify" (info:
     the counts and ``ms``, the densify's time), "reset", "vis",
     "upscale", "checkpoint" (info: ``path``, ``seconds``, ``bytes``) and
-    "eval". Returns (state, scene, losses): the final TrainState and the
-    loss of every step taken.
+    "eval" (info: ``complete_eval``'s metrics by split). Under
+    ``args.test_only``, or at a checkpoint of the last iteration, it takes
+    no step and runs the final eval. Returns (state, scene, losses): the
+    final TrainState and the loss of every step taken.
     """
     vis_path = os.path.join(args.model_path, "visualization")
     os.makedirs(vis_path, exist_ok=True)
@@ -161,14 +178,26 @@ def training(args, device, init_params=None, on_step=None, on_event=None):
         cfg = gaussian_config(args, no_time_split=no_time_split)
         return (make_train_step(args, cfg, settings, bg),
                 make_densify_fn(args, cfg),
-                make_eval_render(args, cfg, settings, bg), cfg)
+                make_eval_render(args, cfg, settings, bg),
+                make_eval_render360(args, cfg, settings, bg), cfg)
 
     def event(iteration, name, info=None):
         if on_event is not None:
             on_event(iteration, name, state, info)
 
     no_time_split = bool(args.no_time_split)
-    train_step, densify_fn, eval_render, cfg_now = build_fns(no_time_split)
+    (train_step, densify_fn, eval_render, eval_render360,
+     cfg_now) = build_fns(no_time_split)
+
+    if args.get("test_only") or first_iter == args.iterations:
+        sh_degree = min(first_iter // args.sh_increase_interval,
+                        args.sh_degree)
+        results = complete_eval(first_iter, args, scene, state, sh_degree,
+                                eval_render, is_final=True,
+                                save_raydrop_data=True,
+                                eval_render360=eval_render360)
+        event(first_iter, "eval", results)
+        return state, scene, []
 
     rng = np.random.default_rng(args.seed)
     generator = torch.Generator(device=device).manual_seed(int(args.seed))
@@ -219,8 +248,8 @@ def training(args, device, init_params=None, on_step=None, on_event=None):
         # flip time-split mode (reference train.py:356-357)
         if "flip" in events:
             no_time_split = False
-            train_step, densify_fn, eval_render, cfg_now = build_fns(
-                no_time_split)
+            (train_step, densify_fn, eval_render, eval_render360,
+             cfg_now) = build_fns(no_time_split)
             event(iteration, "flip")
 
         if "densify" in events:
@@ -258,9 +287,12 @@ def training(args, device, init_params=None, on_step=None, on_event=None):
             tb.scalars(iteration, log, n_now)
 
         if iteration in args.test_iterations:
-            print(f"[{iteration}] eval at test_iterations is not ported to "
-                  f"gslidar_tpu_torch yet: no metrics", flush=True)
-            event(iteration, "eval")
+            final = iteration == args.iterations
+            results = complete_eval(iteration, args, scene, state,
+                                    sh_degree, eval_render, is_final=final,
+                                    save_raydrop_data=final,
+                                    eval_render360=eval_render360)
+            event(iteration, "eval", results)
 
         if iteration % args.vis_step == 0 or iteration == 1:
             pkg = eval_render(state.params, state.aux.alive, state.prior,
@@ -281,8 +313,8 @@ def training(args, device, init_params=None, on_step=None, on_event=None):
             prior = raydrop_prior_upscale(state.prior, next_h, next_w)
             state = state._replace(prior=prior,
                                    prior_opt=PriorAdam.init(prior))
-            train_step, densify_fn, eval_render, cfg_now = build_fns(
-                no_time_split)
+            (train_step, densify_fn, eval_render, eval_render360,
+             cfg_now) = build_fns(no_time_split)
             event(iteration, "upscale")
 
         if "checkpoint" in events:
@@ -314,8 +346,41 @@ def load_args(config, base_config="configs/base.yaml", overrides=()):
     return args
 
 
+def test_only_args(args):
+    """``--test_only``'s settings (root train.py:511-523): no shuffle, the
+    newest checkpoint of ``checkpoint_iterations`` as the start, the
+    resolution it was trained at and the run's saved scale factor."""
+    from gslidar_tpu_torch.config import Config
+    Config.update(args, "shuffle", False)
+    scales = list(args.resolution_scales)
+    idx = len(scales) - 1
+    for iteration in args.checkpoint_iterations:
+        path = os.path.join(args.model_path, "ckpt", f"chkpnt{iteration}.npz")
+        if os.path.exists(path):
+            Config.update(args, "start_checkpoint", path)
+            idx = max(0, len(scales) - 1
+                      - iteration // args.scale_increase_interval)
+    Config.update(args, "resolution_scales", [scales[idx]])
+    with open(os.path.join(args.model_path, "scale_factor.txt")) as f:
+        Config.update(args, "scale_factor", float(f.read()))
+
+
+@contextlib.contextmanager
+def log_to(path):
+    """stdout and stderr into ``path`` inside the block (root train.py:
+    495-501), restored and the file closed after it."""
+    saved = sys.stdout, sys.stderr
+    with open(path, "w", buffering=1) as f:
+        sys.stdout = sys.stderr = f
+        try:
+            yield
+        finally:
+            sys.stdout, sys.stderr = saved
+
+
 def main(argv=None):
     from gslidar_tpu_torch.config import Config
+    from gslidar_tpu_torch.engine.refine import refine, refine_test
     from gslidar_tpu_torch.utils.general import seed_everything
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -323,9 +388,15 @@ def main(argv=None):
     parser.add_argument("--base_config", default="configs/base.yaml")
     parser.add_argument("--start_checkpoint", default=None)
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--test_only", action="store_true")
+    parser.add_argument("--median_depth", action="store_true")
+    parser.add_argument("--skip_refine", action="store_true")
+    parser.add_argument("--show_log", action="store_true")
     known, rest = parser.parse_known_args(argv)
     args = load_args(known.config, known.base_config, rest)
     Config.update(args, "start_checkpoint", known.start_checkpoint)
+    Config.update(args, "test_only", known.test_only)
+    Config.update(args, "median_depth", known.median_depth)
     device = torch.device(known.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to train with "
@@ -333,20 +404,31 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
 
     os.makedirs(args.model_path, exist_ok=True)
-    print("Optimizing " + args.model_path)
-    with open(os.path.join(args.model_path, "setting.txt"), "w") as f:
-        f.write("------------------ start ------------------\n")
-        for k, v in args.items():
-            f.write(f"{k} : {v}\n")
-        f.write("------------------- end -------------------")
-    seed_everything(args.seed)
-    state, _, losses = training(args, device)
-    if losses:
-        print(f"trained {len(losses)} steps to {state.params['xyz'].shape[0]}"
-              f" gaussians: loss {losses[0]:.5f} -> {losses[-1]:.5f}")
-    else:
-        print(f"nothing to train: the checkpoint is at iteration "
-              f"{args.iterations}")
+    with (contextlib.nullcontext() if known.show_log
+          else log_to(os.path.join(args.model_path, "log.txt"))):
+        if args.test_only:
+            test_only_args(args)
+        print("Optimizing " + args.model_path)
+        with open(os.path.join(args.model_path, "setting.txt"), "w") as f:
+            f.write("------------------ start ------------------\n")
+            for k, v in args.items():
+                f.write(f"{k} : {v}\n")
+            f.write("------------------- end -------------------")
+        rd = os.path.join(args.model_path, "ray_drop_datasets")
+        if os.path.exists(rd) and not args.test_only:
+            shutil.rmtree(rd)
+        seed_everything(args.seed)
+        state, _, losses = training(args, device)
+        if losses:
+            print(f"trained {len(losses)} steps to "
+                  f"{state.params['xyz'].shape[0]} gaussians: loss "
+                  f"{losses[0]:.5f} -> {losses[-1]:.5f}")
+        print("\nTraining complete.", flush=True)
+        if not known.skip_refine:
+            if not args.test_only:
+                refine(args, device)
+            refine_test(args, device)
+            print("\nRefine complete.", flush=True)
 
 
 if __name__ == "__main__":

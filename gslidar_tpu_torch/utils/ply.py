@@ -1,5 +1,5 @@
 """Tiny PLY reader/writer (binary little-endian), replacing plyfile (the
-port's copy of gslidar_tpu/utils/ply.py, without the plain xyz export).
+port's copy of gslidar_tpu/utils/ply.py).
 
 The points3d.ply layout: x y z nx ny nz red green blue time
 (reference: scene/scene_utils.py:59-91).
@@ -121,3 +121,9 @@ def fetch_points_ply(path):
     time = (cols["time"].reshape(-1, 1).astype(np.float32)
             if "time" in cols else None)
     return pts, colors, normals, time
+
+
+def save_xyz_ply(points, path) -> None:
+    """Plain xyz export (reference: utils/system_utils.py:45-63)."""
+    pts = np.asarray(points, dtype=np.float32).reshape(-1, 3)
+    write_ply(str(path), {"x": pts[:, 0], "y": pts[:, 1], "z": pts[:, 2]})

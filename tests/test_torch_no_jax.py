@@ -7,18 +7,23 @@ smoke test refuses to run without a card.
   a gslidar_tpu checkpoint of a tiny Synthetic scene on the CPU in a
   subprocess where ``import jax`` and ``import gslidar_tpu`` fail;
 * the training entry point, ``python -m gslidar_tpu_torch.train``, trains
-  a tiny Synthetic scene on the CPU the same way, past a densify, and
-  writes a checkpoint that gslidar_tpu reads;
+  a tiny Synthetic scene on the CPU the same way, past a densify, writes
+  a checkpoint that gslidar_tpu reads, evaluates it, refines its ray drop
+  with a U-Net whose refine.npz gslidar_tpu reads and scores it, logging
+  to log.txt; ``--test_only`` and ``--skip_refine`` do what the root
+  train.py's do;
 * ``python3 chip_smoke.py`` with CUDA hidden exits non-zero with a clear
   message and prints no result line.
 """
 
+import json
 import os
 import re
 import subprocess
 import sys
 
 import numpy as np
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCK_JAX = ("import sys; sys.modules['jax'] = None; "
@@ -112,21 +117,19 @@ def test_render_cli_runs_without_jax(tmp_path):
         assert (img[2] > 0).any()                             # depth
 
 
-def test_train_cli_runs_without_jax(tmp_path):
-    """12 steps past densify_from_iter, with a densify at 8 and the
-    checkpoint at 12, which gslidar_tpu's load_checkpoint then reads."""
-    import jax
-    from gslidar_tpu.engine.checkpoint import load_checkpoint
-    from gslidar_tpu.engine.train import init_train_state
-    from gslidar_tpu.models import gaussians as G
-    from gslidar_tpu.models.raydrop_prior import init_raydrop_prior
-    run = tmp_path / "run"
-    argv = ["-m", "gslidar_tpu_torch.train",
-            "--config", os.path.join(REPO, "configs", "synthetic_smoke.yaml"),
-            "--base_config", os.path.join(REPO, "configs", "base.yaml"),
-            "--device", "cpu", "iterations=12", "densify_from_iter=4",
-            "densification_interval=4", "densify_until_iter=10",
-            "hw=[16,64]", "frames=4", "num_pts=1500", f"model_path={run}"]
+TRAIN_ARGS = ["--config",
+              os.path.join(REPO, "configs", "synthetic_smoke.yaml"),
+              "--base_config", os.path.join(REPO, "configs", "base.yaml"),
+              "--device", "cpu", "iterations=12", "densify_from_iter=4",
+              "densification_interval=4", "densify_until_iter=10",
+              "hw=[16,64]", "frames=4", "num_pts=1500", "refine_epochs=2"]
+
+
+def _run_train_cli(run, *flags):
+    """``python -m gslidar_tpu_torch.train`` on the CPU with ``import jax``
+    blocked; returns (the subprocess, the run's log.txt)."""
+    argv = ["-m", "gslidar_tpu_torch.train", *TRAIN_ARGS,
+            f"model_path={run}", *flags]
     code = (BLOCK_JAX + "import runpy, torch; torch.set_num_threads(2); "
             f"sys.argv = {argv!r}; "
             "runpy.run_module('gslidar_tpu_torch.train', "
@@ -135,10 +138,42 @@ def test_train_cli_runs_without_jax(tmp_path):
     r = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert "NO_JAX_OK" in r.stdout
-    assert "[8] densify: 1500 -> " in r.stdout, r.stdout
-    m = re.search(r"trained 12 steps to (\d+) gaussians", r.stdout)
-    assert m, r.stdout
+    assert "NO_JAX_OK" in r.stdout        # stdout is back after the run
+    with open(run / "log.txt") as f:
+        return r, f.read()
+
+
+@pytest.fixture(scope="module")
+def trained_run(tmp_path_factory):
+    """The training CLI's run of TRAIN_ARGS: 12 steps, the final eval,
+    2 refine epochs and refine_test."""
+    run = tmp_path_factory.mktemp("cli") / "run"
+    return run, _run_train_cli(run)[1]
+
+
+def _metrics(run, name):
+    with open(run / "eval" / name / "metrics.json") as f:
+        return json.load(f)
+
+
+def test_train_cli_runs_without_jax(trained_run, monkeypatch):
+    """12 steps past densify_from_iter, with a densify at 8 and the
+    checkpoint at 12, which gslidar_tpu's load_checkpoint then reads; the
+    final eval at 12 (both splits, ray_drop_datasets), 2 refine epochs
+    whose refine.npz gslidar_tpu's _load_unet reads, and refine_test. The
+    log goes to log.txt."""
+    import jax
+    from gslidar_tpu.config import Config
+    from gslidar_tpu.engine.checkpoint import load_checkpoint
+    from gslidar_tpu.engine.refine import _load_unet
+    from gslidar_tpu.engine.train import init_train_state
+    from gslidar_tpu.models import gaussians as G
+    from gslidar_tpu.models import unet as JU
+    from gslidar_tpu.models.raydrop_prior import init_raydrop_prior
+    run, log = trained_run
+    assert "[8] densify: 1500 -> " in log, log
+    m = re.search(r"trained 12 steps to (\d+) gaussians", log)
+    assert m, log
     assert (run / "scale_factor.txt").exists()
     assert (run / "setting.txt").exists()
     assert os.listdir(run / "visualization")
@@ -154,6 +189,48 @@ def test_train_cli_runs_without_jax(tmp_path):
     assert bool(state.aux.alive.all()) and int(state.opt.count) == 11
     assert all(bool(jax.numpy.isfinite(x).all())
                for x in jax.tree.leaves(state.params))
+
+    # the final eval, its ray-drop datasets, refine and refine_test
+    for split in ("test", "train"):
+        got = _metrics(run, f"{split}_12_render")
+        assert got["split"] == split and got["iteration"] == 12
+        assert 0 <= got["Ray drop"]["Acc"] <= 1
+        assert got["Depth"]["LPIPS"] == 1.0       # 16 rows: no LPIPS
+        assert os.listdir(run / "ray_drop_datasets" / f"render_{split}")
+        got = _metrics(run, f"{split}_refine_render")
+        assert got["iteration"] == "refine" and set(got) == {
+            "split", "iteration", "Ray drop", "Point Cloud", "Depth",
+            "Intensity"}
+    assert "Start UNet Optimization" in log and "Refine complete." in log
+    init = JU.UNet.init
+    monkeypatch.setattr(JU.UNet, "init", lambda self, r, x, train=True:
+                        jax.jit(lambda r, x: init(self, r, x,
+                                                  train=train))(r, x))
+    model, params, stats = _load_unet(Config({"model_path": str(run)}))
+    x = np.load(run / "ray_drop_datasets" / "render_test" / sorted(
+        os.listdir(run / "ray_drop_datasets" / "render_test"))[0])[None]
+    out = np.asarray(model.apply({"params": params, "batch_stats": stats},
+                                 x.astype(np.float32), train=False))
+    assert out.shape == (1, 1, 16, 128) and np.isfinite(out).all()
+
+
+def test_train_cli_test_only_and_skip_refine_without_jax(trained_run):
+    """``--test_only`` evaluates the newest checkpoint (chkpnt12) and runs
+    refine_test on the refine.npz there without refining again;
+    ``--test_only --skip_refine`` evaluates only."""
+    run, _ = trained_run
+    npz = run / "ckpt" / "refine.npz"
+    stamp = os.stat(npz).st_mtime_ns
+    before = _metrics(run, "test_12_render")
+    _, log = _run_train_cli(run, "--test_only")
+    assert "trained" not in log and "Start UNet Optimization" not in log
+    assert "[ITER 12] eval test" in log and "[refine] test" in log
+    assert os.stat(npz).st_mtime_ns == stamp
+    assert _metrics(run, "test_12_render") == before
+    os.remove(run / "eval" / "test_refine_render" / "metrics.json")
+    _, log = _run_train_cli(run, "--test_only", "--skip_refine")
+    assert "[ITER 12] eval test" in log and "[refine]" not in log
+    assert not (run / "eval" / "test_refine_render" / "metrics.json").exists()
 
 
 def test_chip_smoke_fails_without_a_card():
