@@ -122,7 +122,31 @@ failing phase raises:
    It prints per pair the ms of the render, ``_depth3``, the host copies,
    each meter and the chamfer, the eval's seconds, ms per refine epoch
    (CUDA events), the refine and refine_test seconds and the peak memory;
-12. the result: the card's nvidia-smi line, one JSON line of the kernels,
+12. a dynamic, multi-vehicle scene at full width: a synthetic OPV2V tree
+   (``gslidar_tpu_torch.data.opv2v_tree``: 3 vehicles x 17 frames of 128
+   x 2048 rays over opv2v_dynamic_2's vfov, ~7.7M points) preprocessed by
+   ``data.preprocess.opv2v_to_gs``, then ``training`` on
+   configs/opv2v_dynamic_2.yaml for 16 steps with only the paths and the
+   cadence overridden (``OPV2V_RUN``: densify at 8 and 12, resets at 6
+   and 12, checkpoints at 12 and 16, the time-split flip at 15): the
+   loader keeps 3,000,000 points and ``create_from_pcd`` makes 3,000,000
+   gaussians (SH degree 3, 66x515 halves, every lambda as configured);
+   each step launches the forward and the backward kernel once, with a
+   finite loss and gradients, and a nonzero self-supervision time shift
+   on at least one step; the velocity, t and scaling_t groups move; the
+   events are exactly ``schedule``'s; the step after the first densify
+   holds both kernels against their plain versions at phase 7's bars;
+   chkpnt12 reloads every leaf bit for bit; the final eval (3 test and
+   48 train pairs) writes finite metrics. The live viewer is on: from a
+   client thread started in step 5's hook, ``/pause``, a full, a preview
+   and a full ``/render`` (PNGs of h x w and half of it, one forward
+   launch each), ``/pause`` again and ``/stats``. It prints the tree's and the
+   scene's sizes and seconds, ``create_from_pcd``'s seconds with its 3-NN
+   apart, the instances per step, the median step time between
+   densifies, each densify's counts and time, the checkpoints' size and
+   save and load seconds, the eval's seconds, the viewer's ms per render
+   and the peak memory by stage;
+13. the result: the card's nvidia-smi line, one JSON line of the kernels,
    and the last line ``{"ok": true, "device": {...}}``.
 
 Tolerances, forward kernel vs plain: color, features, normal, alpha and
@@ -1559,6 +1583,393 @@ def phase_eval_refine(args, params, alive, prior, smi):
     return summ_f["raw_max_abs_err"], launches
 
 
+# --------------------------------------------------------------- phase 12
+# opv2v_dynamic_2 on the synthetic OPV2V tree: its widths, lambdas,
+# num_pts and densify_until_num_points as configured, only the paths and
+# the cadence overridden; the flip (time_split_frac 1.0) then fires at 15,
+# after the last densify, as in the real config. One threshold goes with
+# the cadence: the config prunes opacity under 0.1 (thresh_opa_prune),
+# above the 0.05 that create_from_pcd and each reset give every gaussian,
+# and 7 Adam steps at opacity_lr 0.05 cannot lift one past it (15 would),
+# so a densify at 8 would prune every gaussian; base.yaml's 0.005 stands in
+OPV2V_RUN = ["densify_from_iter=4", "densification_interval=4",
+             "densify_until_iter=14", "opacity_reset_interval=6",
+             "checkpoint_iterations=[12]", "thresh_opa_prune=0.005"]
+OPV2V_ITERATIONS = 16
+OPV2V_FRAMES = list(range(68, 101, 2))    # frame_start 68 to frame_end 100
+VIEWER_AT = 5                             # the step whose hook starts the
+                                          # viewer's client (no event there)
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def viewer_client(port, steps, out, paused):
+    """The viewer's client, on a thread of its own: pause the loop (it
+    then waits in its next ``checkin``), a full, a preview and a second
+    full ``/render``, each timed and counted in forward launches (the
+    first waits for the rest of the loop's iteration, which holds the
+    viewer's lock), resume, read ``/stats``. The launches of the renders
+    are moved off the next step (``steps.skip``) while the loop is
+    paused."""
+    import io
+    import urllib.request
+    from PIL import Image
+    from gslidar_tpu_torch.raster.composite_fwd import composite_forward
+
+    def get(path, method="GET"):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                     method=method)
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.read()
+    try:
+        out["paused"] = json.loads(get("/pause", "POST"))["paused"]
+        paused.set()
+        for name, q in (("full", ""), ("preview", "&preview=1"),
+                        ("full again", "")):
+            n0 = composite_forward.launches
+            t0 = time.perf_counter()
+            png = get("/render?mode=orbit&az=30&el=20&dist=25&frame=8" + q)
+            out[name] = dict(ms=(time.perf_counter() - t0) * 1e3,
+                             size=Image.open(io.BytesIO(png)).size,
+                             launches=composite_forward.launches - n0)
+        steps.skip()
+        out["resumed"] = not json.loads(get("/pause", "POST"))["paused"]
+        out["stats"] = json.loads(get("/stats"))
+    except Exception as e:                 # reported by the phase's check
+        out["error"] = repr(e)
+    finally:
+        paused.set()
+
+
+def phase_opv2v(smi, device, tree_kw=None, overrides=()):
+    """The dynamic, multi-vehicle scene at full width: a synthetic OPV2V
+    tree (3 vehicles x 17 frames, written by ``data/opv2v_tree.py`` and
+    preprocessed by ``data/preprocess/opv2v_to_gs.py``), then ``training``
+    on configs/opv2v_dynamic_2.yaml for 16 steps from the 3,000,000
+    gaussians of ``create_from_pcd``, with the live viewer on and served
+    from a client thread; the launch counts are set to 0 just before the
+    run and read just after. ``tree_kw`` and ``overrides`` shrink the tree
+    and the config for a rehearsal on the CPU. Returns the kernels'
+    largest absolute errors against their plain versions on the step
+    after the first densify, and the run's launches."""
+    import contextlib
+    import math
+    import random
+    import shutil
+    import threading
+    import numpy as np
+    import torch
+    import gslidar_tpu_torch.models.gaussians as G
+    import gslidar_tpu_torch.raster.composite_op as co
+    import gslidar_tpu_torch.train as T
+    from gslidar_tpu_torch.data.opv2v_tree import write_opv2v_tree
+    from gslidar_tpu_torch.data.preprocess import opv2v_to_gs
+    from gslidar_tpu_torch.engine.checkpoint import load_train_state
+    from gslidar_tpu_torch.ops.knn import mean_sq_dist_knn3_brute
+    from gslidar_tpu_torch.raster.composite_bwd import composite_backward
+    from gslidar_tpu_torch.raster.composite_fwd import composite_forward
+
+    root = os.path.join(REPO, "build", "chip_smoke_opv2v")
+    shutil.rmtree(root, ignore_errors=True)
+    data, run = os.path.join(root, "data"), os.path.join(root, "run")
+    t0 = time.perf_counter()
+    n_written = write_opv2v_tree(data, OPV2V_FRAMES, **(tree_kw or {}))
+    with contextlib.redirect_stdout(None):
+        opv2v_to_gs.main(data)
+    tree_s = time.perf_counter() - t0
+    port = _free_port()
+    args = T.load_args(os.path.join(REPO, "configs", "opv2v_dynamic_2.yaml"),
+                       os.path.join(REPO, "configs", "base.yaml"),
+                       [f"source_path={data}", f"model_path={run}",
+                        f"iterations={OPV2V_ITERATIONS}", f"seed={SEED}",
+                        *OPV2V_RUN, "viewer=true", f"viewer_port={port}",
+                        *overrides])
+    h, w = args.hw
+    random.seed(SEED)               # the loader's pair shuffle
+    np.random.seed(SEED)            # and its point colors
+    rec = dict(n={}, events={}, step_ms={}, densify={}, ckpt={}, eval_s={},
+               shift={}, pairs={}, peak={}, moved={})
+    bad, cuda_ms, held, capture = [], [], {}, dict(armed=False)
+    client, paused = {}, threading.Event()
+    saved_fns = (T.build_scene, T.create_from_pcd, G.mean_sq_dist_knn3,
+                 T.make_train_step, T.make_densify_fn, co.composite_backward)
+
+    def timed(name, fn):
+        def run_timed(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            rec[name] = time.perf_counter() - t
+            return out
+        return run_timed
+
+    def create_keep(*a, **k):
+        params, aux = timed("create_s", saved_fns[1])(*a, **k)
+        rec["init"] = {key: params[key].clone()
+                       for key in ("velocity", "t", "scaling_t")}
+        stage("create_from_pcd")
+        return params, aux
+
+    def make_step(*a, **k):
+        fn = saved_fns[3](*a, **k)
+
+        def step(state, cam, iteration, sh, time_shift, *aa, **kk):
+            rec["shift"][iteration] = time_shift
+            return fn(state, cam, iteration, sh, time_shift, *aa, **kk)
+        return step
+
+    def make_densify(*a, **k):
+        fn = saved_fns[4](*a, **k)
+
+        def densify(*aa, **kk):                # the densify by CUDA events
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*aa, **kk)
+            ev[1].record()
+            torch.cuda.synchronize()
+            cuda_ms.append(ev[0].elapsed_time(ev[1]))
+            return out
+        return densify
+
+    def bwd_keep(*a):
+        if capture["armed"]:
+            capture["bwd"] = a
+        return saved_fns[5](*a)
+
+    def stage(name):
+        """Close the stage since the last mark as ``name``: its peak
+        memory (the largest over its occurrences) and its host time."""
+        torch.cuda.synchronize()
+        gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        rec["peak"][name] = max(rec["peak"].get(name, 0.0), gib)
+        torch.cuda.reset_peak_memory_stats()
+        seconds = time.perf_counter() - rec.get("t", time.perf_counter())
+        rec["t"] = time.perf_counter()
+        return seconds
+
+    def check_kernels(iteration):
+        saved = (composite_forward.launches, composite_backward.launches)
+        rows, starts, fwd, _, params8, st, C, S, ckpt = capture.pop("bwd")
+        ok_f, summ_f, _, _ = run_pair(rows, starts, params8, st, C, S)
+        ok_b, summ_b = run_bwd_pair(rows, starts, fwd,
+                                    random_cotangents(st, C, S, SEED + 23,
+                                                      rows.device),
+                                    params8, st, C, S, ckpt)
+        composite_forward.launches, composite_backward.launches = saved
+        for kind, ok, summ in (("forward", ok_f, summ_f),
+                               ("backward", ok_b, summ_b)):
+            say(12, f"{kind} kernel vs plain on dynamic step {iteration}, "
+                    f"the first after a densify ({rows.shape[0]} "
+                    f"instances): {'ok' if ok else 'FAIL'} "
+                    f"{json.dumps(summ)}")
+            if not ok:
+                bad.append(f"{kind} kernel vs plain at {iteration}")
+        rec["checked"] = (iteration, summ_f["raw_max_abs_err"],
+                          summ_b["raw_max_abs_err"])
+
+    def on_step(iteration, state, loss, log, grads):
+        rec["step_ms"][iteration] = stage("step") * 1e3
+        steps.step()
+        rec["n"][iteration] = state.params["xyz"].shape[0]
+        rec["pairs"][iteration] = log["num_pairs"]
+        rec["events"][iteration] = []
+        if not (math.isfinite(float(loss)) and all(
+                bool(torch.isfinite(g).all()) for g in grads.values())):
+            bad.append(f"non-finite loss or gradient at {iteration}")
+        if not rec["densify"]:                 # rows as create_from_pcd's
+            for k, v in rec["init"].items():
+                rec["moved"][k] = rec["moved"].get(k, False) or \
+                    not torch.equal(state.params[k], v)
+        if capture["armed"]:
+            capture["armed"] = False
+            check_kernels(iteration)
+        if iteration == VIEWER_AT:
+            client["thread"] = threading.Thread(
+                target=viewer_client, args=(port, steps, client, paused),
+                daemon=True)
+            client["thread"].start()
+            if not paused.wait(300):
+                bad.append("the viewer's client did not pause the loop")
+        stage("hook")
+
+    def on_event(iteration, name, state, info):
+        seconds = stage(name)
+        steps.skip()
+        rec["events"][iteration].append(name)
+        if name == "densify":
+            rec["densify"][iteration] = dict(info, cuda_ms=cuda_ms[-1])
+            capture["armed"] = len(rec["densify"]) == 1
+        elif name == "checkpoint":
+            rec["ckpt"][iteration] = info
+            held[iteration] = state
+        elif name == "eval":
+            rec["eval_s"][iteration] = (seconds, info)
+        stage("hook")
+
+    torch.cuda.empty_cache()
+    (T.build_scene, T.create_from_pcd, G.mean_sq_dist_knn3, T.make_train_step,
+     T.make_densify_fn, co.composite_backward) = (
+        timed("scene_s", saved_fns[0]), create_keep,
+        timed("knn_s", saved_fns[2]), make_step, make_densify, bwd_keep)
+    try:
+        composite_forward.launches = 0
+        composite_backward.launches = 0
+        steps = StepLaunches()
+        torch.cuda.reset_peak_memory_stats()
+        rec["t"] = t0 = time.perf_counter()
+        state, scene, losses = T.training(args, device, on_step=on_step,
+                                          on_event=on_event)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = (composite_forward.launches, composite_backward.launches)
+    finally:
+        (T.build_scene, T.create_from_pcd, G.mean_sq_dist_knn3,
+         T.make_train_step, T.make_densify_fn,
+         co.composite_backward) = saved_fns
+    if "thread" in client:
+        client["thread"].join(60)
+    per_step = steps.per_step
+    n_points = len(scene.scene_info.point_cloud[0])
+    n_test = len(scene.get_test_cameras(1)) // 2
+    n_train = len(scene.get_train_cameras()) // 2
+
+    # the events against the schedule, on the counts observed
+    nts, wrong = bool(args.no_time_split), []
+    for it in range(1, OPV2V_ITERATIONS + 1):
+        want = T.schedule(args, it, rec["n"][it], nts)
+        got = [e for e in rec["events"][it] if e not in ("vis", "eval")]
+        if got != want:
+            wrong.append((it, got, want))
+        nts = nts and "flip" not in got
+    fired = {it: ev for it, ev in rec["events"].items() if ev}
+    shifted = {it: round(s, 6) for it, s in rec["shift"].items() if s}
+    say(12, f"dynamic OPV2V scene on {smi}: {n_written} points in the tree "
+            f"(3 vehicles x {len(OPV2V_FRAMES)} frames, written and "
+            f"preprocessed in {tree_s:.1f} s); the loader kept {n_points} "
+            f"(scene built in {rec['scene_s']:.1f} s: {n_train} train and "
+            f"{n_test} test pairs at {h}x{w}); create_from_pcd "
+            f"{rec['create_s']:.1f} s, of which the 3-NN {rec['knn_s']:.1f}"
+            f" s")
+    say(12, f"training opv2v_dynamic_2: {len(losses)} steps ("
+            + ", ".join(OPV2V_RUN) + f") | events {fired} | launches "
+            f"forward {launches[0]}, backward {launches[1]}, per step "
+            f"{per_step} (and {steps.other[0]} forwards of the depth "
+            f"visualizations, the viewer and the final eval) | time shift "
+            f"at {shifted} | gaussians per step "
+            f"{[rec['n'][i] for i in sorted(rec['n'])]} | instances per "
+            f"step {[rec['pairs'][i] for i in sorted(rec['pairs'])]} | loss "
+            f"{[round(x, 5) for x in losses]} | moved before the first "
+            f"densify {rec['moved']} | {wall_s:.1f} s with set-up")
+    for it, c in rec["densify"].items():
+        say(12, f"densify at {it}: {c['before']} -> {c['after']} gaussians: "
+                f"never visible -{c['never_visible']}, clones "
+                f"{c['clones']}, splits {c['splits']}, new +{c['new']}, "
+                f"opacity prune -{c['opacity_pruned']}, world-size prune "
+                f"-{c['world_size_pruned']} | {c['cuda_ms']:.3f} ms by CUDA "
+                f"events on {smi}")
+    dens = sorted(rec["densify"])
+    spans = [range(2, dens[0])] + [range(a + 1, b) for a, b in zip(
+        dens, dens[1:] + [OPV2V_ITERATIONS + 1])]
+    # the loop waits for the viewer's two renders in the next checkin
+    rec["step_ms"].pop(VIEWER_AT + 1, None)
+    say(12, f"step time on {smi} (host clock around each step, "
+            f"synchronised; median): " + ", ".join(
+                f"steps {r.start}-{r.stop - 1} ({rec['n'][r.start]} "
+                f"gaussians) {_median_ms(rec['step_ms'], r):.3f} ms"
+                for r in spans if len(r)))
+
+    # chkpnt12 reloads bit for bit
+    path12 = rec["ckpt"].get(12, {}).get("path", "")
+    t0 = time.perf_counter()
+    loaded, it12 = load_train_state(path12, device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    saved = held.pop(12)
+    same = (it12 == 12 and loaded.opt.count == saved.opt.count
+            and all(a.dtype == b.dtype and torch.equal(a, b) for a, b in [
+                *((loaded.params[k], saved.params[k]) for k in saved.params),
+                *((loaded.opt.mu[k], saved.opt.mu[k]) for k in saved.params),
+                *((loaded.opt.nu[k], saved.opt.nu[k]) for k in saved.params),
+                *((getattr(loaded.aux, f), getattr(saved.aux, f)) for f in (
+                    "alive", "max_radii2D", "xyz_gradient_accum",
+                    "xyz_gradient_accum_abs", "t_gradient_accum", "denom")),
+                (loaded.prior, saved.prior),
+                (loaded.prior_opt[0], saved.prior_opt[0]),
+                (loaded.prior_opt[1], saved.prior_opt[1])]))
+    del loaded, saved, held
+
+    # the spatial 3-NN against its brute force on a 100k subset of the cloud
+    sub = torch.as_tensor(scene.scene_info.point_cloud[0][::30],
+                          device=device)
+    t0 = time.perf_counter()
+    fast = G.mean_sq_dist_knn3(sub)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    brute = mean_sq_dist_knn3_brute(sub)
+    torch.cuda.synchronize()
+    knn_same = bool(torch.equal(fast, brute))
+    say(12, f"3-NN on {smi}, {sub.shape[0]} points of the scene: spatial "
+            f"search {t1 - t0:.2f} s, brute force "
+            f"{time.perf_counter() - t1:.2f} s, equal bit for bit: "
+            f"{knn_same}")
+
+    def numbers(d):
+        for v in d.values():
+            if isinstance(v, dict):
+                yield from numbers(v)
+            elif isinstance(v, float):
+                yield v
+    eval_s, results = rec["eval_s"].get(OPV2V_ITERATIONS, (0.0, {}))
+    finite = bool(results) and all(
+        math.isfinite(x) for split in results.values()
+        for x in numbers(split))
+    say(12, "checkpoints on " + smi + ": " + ", ".join(
+        f"{it}: {c['bytes']} bytes saved in {c['seconds']:.2f} s"
+        for it, c in sorted(rec["ckpt"].items()))
+        + f" | chkpnt12 loaded in {load_s:.2f} s, every leaf bit for bit as "
+          f"saved: {same} | the final eval ({n_test} test + {n_train} train "
+          f"pairs at {h}x{2 * w}) {eval_s:.2f} s, metrics finite {finite}: "
+          + json.dumps({k: {m: v[m] for m in ("Ray drop", "Depth")}
+                        for k, v in results.items()}))
+    say(12, f"viewer on {smi} (port {port}, served from a client thread "
+            f"during step {VIEWER_AT}): "
+            + json.dumps({k: client.get(k) for k in (
+                "paused", "full", "preview", "full again", "resumed",
+                "stats", "error")})
+            + " | peak memory by stage (GiB) "
+            + json.dumps({k: round(v, 2) for k, v in rec["peak"].items()}))
+    shutil.rmtree(root, ignore_errors=True)
+    full, prev, again = (client.get(k, {}) for k in (
+        "full", "preview", "full again"))
+    if (wrong or bad or len(losses) != OPV2V_ITERATIONS
+            or n_points != args.num_pts or (n_train, n_test) != (48, 3)
+            or any(d != (1, 1) for d in per_step)
+            or dens != [8, 12] or not shifted
+            or not all(rec["moved"].get(k) for k in (
+                "velocity", "t", "scaling_t"))
+            or rec.get("checked", (0,))[0] != 9 or not same or not finite
+            or not knn_same
+            or sorted(results) != ["test", "train"]
+            or "error" in client or not client.get("paused")
+            or not client.get("resumed")
+            or any(r.get("size") != (w, h) or r.get("launches") != 1
+                   for r in (full, again))
+            or prev.get("size") != (max(w // 2, 8), max(h // 2, 8))
+            or prev.get("launches") != 1
+            or not client.get("stats", {}).get("rays_per_sec")):
+        raise RuntimeError(f"the dynamic OPV2V run failed its checks: events "
+                           f"off the schedule {wrong}, {bad}, checkpoint "
+                           f"bitwise {same}, eval finite {finite}, viewer "
+                           f"{client}")
+    return rec["checked"][1], rec["checked"][2], launches
+
+
 # ---------------------------------------------------------------- phase 7
 def device_idle_share(fn, n):
     """Share of the wall time of n runs of fn in which no kernel, copy or
@@ -2005,6 +2416,7 @@ def main():
     err11, _ = phase_eval_refine(args, params, alive, prior, smi)
     del params, alive, prior, cams, scene
     torch.cuda.empty_cache()
+    err12, err12b, _ = phase_opv2v(smi, device)
     gather = phase_gather(device)
     chains = phase_op_chains(device, clock_hz)
     print(smi)
@@ -2012,14 +2424,15 @@ def main():
         "name": "composite_fwd", "route": "cuda",
         "source": "gslidar_tpu_torch/csrc/composite_fwd.cu",
         "replaces": "gslidar_tpu/raster/pallas_fwd.py:282",
-        "launches": launches[0], "max_abs_err": max(err3, err5, err11),
+        "launches": launches[0],
+        "max_abs_err": max(err3, err5, err11, err12),
         "ms": med["kernel"], "plain_ms": med["plain"],
         "bound_ms": bound_fwd.ms, "bound_by": bound_fwd.bound_by,
         "library_ms": None}, {
         "name": "composite_bwd", "route": "cuda",
         "source": "gslidar_tpu_torch/csrc/composite_bwd.cu",
         "replaces": "gslidar_tpu/raster/pallas_bwd.py:66",
-        "launches": launches[1], "max_abs_err": max(err3b, err7),
+        "launches": launches[1], "max_abs_err": max(err3b, err7, err12b),
         "ms": med7["backward kernel"],
         "plain_ms": med7["plain backward"],
         "bound_ms": bound_bwd.ms, "bound_by": bound_bwd.bound_by,

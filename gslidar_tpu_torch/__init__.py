@@ -15,8 +15,10 @@ for CPU tensors and the kernel for CUDA tensors; it never falls back.
 
 This package imports no JAX and nothing of ``gslidar_tpu``. It carries
 its own copies of the numpy modules it needs from there (``config``,
-``data.cameras``, ``data.kitti360``, ``data.synthetic``, ``utils.general``,
-``utils.ply``, ``native``), each named after its original.
+``data.cameras``, ``data.kitti360``, ``data.opv2v``, ``data.synthetic``,
+``data.preprocess``, ``engine.viewer``, ``utils.general``, ``utils.misc``,
+``utils.ply``, ``utils.system``, ``native``), each named after its
+original.
 """
 
 __version__ = "0.1.0"

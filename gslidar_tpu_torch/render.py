@@ -15,8 +15,9 @@ writes what ``complete_eval(save_raydrop_data=True)`` writes
                                  depth, ray-dropped pixels removed
 
 ``model_path`` (default: the checkpoint's ``ckpt/`` parent) must hold the
-training run's ``scale_factor.txt`` and, for KITTI-360,
-``transform_poses_pca.npz``. ``render_scene`` is the work itself.
+training run's ``scale_factor.txt`` and, for KITTI-360 and OPV2V scenes,
+``transform_poses_pca.npz`` and ``points3d.ply``. ``render_scene`` is the
+work itself.
 """
 
 from __future__ import annotations
@@ -111,13 +112,17 @@ def save_outputs(outdir: str, split: str, results) -> None:
 
 def build_scene(args, shuffle: bool = False):
     from gslidar_tpu_torch.data.kitti360 import read_kitti360_info
+    from gslidar_tpu_torch.data.opv2v import (read_opv2v_info,
+                                              read_opv2v_info_spoof_remove)
     from gslidar_tpu_torch.data.scene import Scene
     from gslidar_tpu_torch.data.synthetic import read_synthetic_info
     loaders = {"Kitti360": read_kitti360_info,
-               "Synthetic": read_synthetic_info}
+               "Synthetic": read_synthetic_info,
+               "OPV2V": read_opv2v_info,
+               "OPV2V_SR": read_opv2v_info_spoof_remove}
     if args.scene_type not in loaders:
-        raise ValueError(f"scene_type {args.scene_type!r} is not served by "
-                         f"the port yet (have {sorted(loaders)})")
+        raise ValueError(f"unknown scene_type {args.scene_type!r} (have "
+                         f"{sorted(loaders)})")
     return Scene(args, loaders[args.scene_type](args), shuffle=shuffle)
 
 

@@ -4,7 +4,7 @@
         [--base_config configs/base.yaml] [--device cuda|cpu] \
         [--start_checkpoint <model_path>/ckpt/chkpnt<it>.npz] \
         [--test_only] [--median_depth] [--skip_refine] [--show_log] \
-        [key=val ...]
+        [--debug_cuda] [key=val ...]
 
 The port's counterpart of the root ``train.py`` (``training``, train.py:
 95-469, and its entry, :472-560). It builds the scene, initializes the
@@ -24,7 +24,11 @@ prior, and trains from iteration 1 (or the checkpoint's) to
   the last one also writing ``ray_drop_datasets/`` (:431-436); the depth
   visualization every ``vis_step`` (:438-449); the coarse-to-fine step
   (:451-459) and the checkpoints (:461-464), which gslidar_tpu's
-  ``load_checkpoint`` reads.
+  ``load_checkpoint`` reads;
+* with ``viewer`` on, the live viewer (:249-279, 466; ``engine/viewer.py``
+  on ``viewer_port``): each iteration runs between its ``checkin`` and
+  ``checkout``, so its renders (``viewer_render``) come between steps,
+  and its server stops when the loop ends.
 
 Then, unless ``--skip_refine``, the ray-drop U-Net trains on the final
 eval's renders (``refine``, skipped under ``--test_only``) and is scored
@@ -33,6 +37,8 @@ eval's renders (``refine``, skipped under ``--test_only``) and is scored
 ``--median_depth`` renders the median depth as the mean. Unless
 ``--show_log``, stdout and stderr go to ``<model_path>/log.txt``.
 
+``--debug_cuda``, ``exhaust_test`` and the removal of a stale
+``model_path`` are the root entry's (``parse_cli``, ``prepare_run``).
 The tensors are sized exactly, so the JAX loop's capacity growth and
 instance caps have no counterpart.
 """
@@ -55,10 +61,11 @@ from gslidar_tpu_torch.engine.checkpoint import (checkpoint_path,
 from gslidar_tpu_torch.engine.evaluate import (complete_eval,
                                                make_eval_render,
                                                make_eval_render360)
-from gslidar_tpu_torch.engine.train import (camera_to_batch,
+from gslidar_tpu_torch.engine.train import (CameraBatch, camera_to_batch,
                                             init_train_state,
                                             make_densify_fn, make_train_step,
                                             reset_opacity_state)
+from gslidar_tpu_torch.engine.viewer import VisManager
 from gslidar_tpu_torch.models.gaussians import GaussianAux, create_from_pcd
 from gslidar_tpu_torch.models.raydrop_prior import (PriorAdam,
                                                     init_raydrop_prior,
@@ -103,6 +110,29 @@ def schedule(args, iteration, n_gaussians, no_time_split):
     if iteration in args.checkpoint_iterations:
         events.append("checkpoint")
     return events
+
+
+def viewer_render(args, device, render_fn, params, alive, prior, c2w,
+                  frame):
+    """The live viewer's depth image [3, H, W] of the model (``params``,
+    ``alive``, ray-drop ``prior``) from pose ``c2w`` (camera to world, 4x4)
+    at frame ``frame`` of ``args.frames`` (root train.py:254-268), through
+    ``render_fn``, the loop's ``make_eval_render`` or its half-resolution
+    twin, at the config's SH degree. The viewer calls it on its server's
+    thread, where grad mode is on (it is thread-local), so it turns it off
+    itself; the kernels launch on that thread's current stream."""
+    with torch.no_grad():
+        w2c = np.linalg.inv(c2w).astype(np.float32)
+        empty = torch.zeros((1, 1, 1), device=device)
+        cam = CameraBatch(
+            viewmat=torch.as_tensor(w2c, device=device),
+            campos=torch.as_tensor(c2w[:3, 3], dtype=torch.float32,
+                                   device=device),
+            timestamp=-0.5 + frame / max(args.frames - 1, 1),
+            towards_idx=0, pts_depth=empty, pts_intensity=empty)
+        pkg = render_fn(params, alive, prior, cam, args.sh_degree)
+        return visualize_depth(pkg.depth.cpu().numpy(),
+                               scale_factor=args.scale_factor)
 
 
 class _TensorBoard:
@@ -176,17 +206,21 @@ def training(args, device, init_params=None, on_step=None, on_event=None):
         w, h = scene.get_wh()
         settings = raster_settings(args, h, w)
         cfg = gaussian_config(args, no_time_split=no_time_split)
+        # the viewer's half-resolution twin while its camera moves
+        # (root train.py:222-229)
+        half = raster_settings(args, max(h // 2, 8), max(w // 2, 8))
         return (make_train_step(args, cfg, settings, bg),
                 make_densify_fn(args, cfg),
                 make_eval_render(args, cfg, settings, bg),
-                make_eval_render360(args, cfg, settings, bg), cfg)
+                make_eval_render360(args, cfg, settings, bg),
+                make_eval_render(args, cfg, half, bg), cfg)
 
     def event(iteration, name, info=None):
         if on_event is not None:
             on_event(iteration, name, state, info)
 
     no_time_split = bool(args.no_time_split)
-    (train_step, densify_fn, eval_render, eval_render360,
+    (train_step, densify_fn, eval_render, eval_render360, eval_render_half,
      cfg_now) = build_fns(no_time_split)
 
     if args.get("test_only") or first_iter == args.iterations:
@@ -209,122 +243,143 @@ def training(args, device, init_params=None, on_step=None, on_event=None):
     profile_at = int(args.get("profile_iter", 0))     # 0 = disabled
     prof = None
 
-    for iteration in range(first_iter + 1, args.iterations + 1):
-        if profile_at and iteration == profile_at:
-            from torch.profiler import ProfilerActivity, profile
-            prof = profile(activities=[ProfilerActivity.CPU] + (
-                [ProfilerActivity.CUDA]
-                if torch.device(device).type == "cuda" else []))
-            prof.start()
-        if prof is not None and iteration == profile_at + 5:
-            prof.stop()
-            out = os.path.join(args.model_path, "profile")
-            os.makedirs(out, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(out, "trace.json"))
-            prof = None
-            print(f"[profiler] trace written to {out}", flush=True)
-        sh_degree = min(iteration // args.sh_increase_interval,
-                        args.sh_degree)
-        cams = scene.get_train_cameras()
-        if not viewpoint_stack:
-            viewpoint_stack = list(range(len(cams)))
-        cam = cams[viewpoint_stack.pop(rng.integers(len(viewpoint_stack)))]
-        if rng.random() < args.lambda_self_supervision:
-            time_shift = 3 * (rng.random() - 0.5) * scene.time_interval
-        else:
-            time_shift = 0.0
+    def on_viewer(c2w, frame, preview=False):
+        # the twin gets no ray-drop prior: the prior is sized for the full
+        # resolution, and the depth does not read it
+        return viewer_render(args, device,
+                             eval_render_half if preview else eval_render,
+                             state.params, state.aux.alive,
+                             None if preview else state.prior, c2w, frame)
 
-        n_before = state.params["xyz"].shape[0]
-        in_window = in_densify_window(args, iteration, n_before)[0]
-        events = schedule(args, iteration, n_before, no_time_split)
-        state, loss, log, grads = train_step(
-            state, camera_to_batch(cam, device), iteration, sh_degree,
-            float(time_shift), stats_on=in_window,
-            apply_update="densify" not in events)
-        losses.append(loss)
-        if on_step is not None:
-            on_step(iteration, state, loss, log, grads)
+    # the live viewer (root train.py:249-274): off unless ``viewer``
+    vis_mgr = VisManager({"port": int(args.get("viewer_port", 8080)),
+                          "enabled": bool(args.get("viewer", False)),
+                          "max_frame": args.frames,
+                          "pixels_per_step": h * w}, on_viewer)
+    try:
+        for iteration in range(first_iter + 1, args.iterations + 1):
+            vis_mgr.checkin()
+            if profile_at and iteration == profile_at:
+                from torch.profiler import ProfilerActivity, profile
+                prof = profile(activities=[ProfilerActivity.CPU] + (
+                    [ProfilerActivity.CUDA]
+                    if torch.device(device).type == "cuda" else []))
+                prof.start()
+            if prof is not None and iteration == profile_at + 5:
+                prof.stop()
+                out = os.path.join(args.model_path, "profile")
+                os.makedirs(out, exist_ok=True)
+                prof.export_chrome_trace(os.path.join(out, "trace.json"))
+                prof = None
+                print(f"[profiler] trace written to {out}", flush=True)
+            sh_degree = min(iteration // args.sh_increase_interval,
+                            args.sh_degree)
+            cams = scene.get_train_cameras()
+            if not viewpoint_stack:
+                viewpoint_stack = list(range(len(cams)))
+            cam = cams[viewpoint_stack.pop(rng.integers(len(viewpoint_stack)))]
+            if rng.random() < args.lambda_self_supervision:
+                time_shift = 3 * (rng.random() - 0.5) * scene.time_interval
+            else:
+                time_shift = 0.0
 
-        # flip time-split mode (reference train.py:356-357)
-        if "flip" in events:
-            no_time_split = False
-            (train_step, densify_fn, eval_render, eval_render360,
-             cfg_now) = build_fns(no_time_split)
-            event(iteration, "flip")
+            n_before = state.params["xyz"].shape[0]
+            in_window = in_densify_window(args, iteration, n_before)[0]
+            events = schedule(args, iteration, n_before, no_time_split)
+            state, loss, log, grads = train_step(
+                state, camera_to_batch(cam, device), iteration, sh_degree,
+                float(time_shift), stats_on=in_window,
+                apply_update="densify" not in events)
+            losses.append(loss)
+            if on_step is not None:
+                on_step(iteration, state, loss, log, grads)
 
-        if "densify" in events:
-            size_on = (iteration > args.opacity_reset_interval
-                       and args.prune_big_point > 0)
-            size_threshold = (args.size_threshold
-                              // scene.resolution_scales[0]
-                              if size_on else None)
-            t0 = time.perf_counter()
-            state, counts = densify_fn(state, generator,
-                                       float(scene.cameras_extent),
-                                       size_threshold)
-            counts["ms"] = (time.perf_counter() - t0) * 1e3
-            counts["world_size_prune"] = size_on
-            print(f"[{iteration}] densify: {counts['before']} -> "
-                  f"{counts['after']} gaussians (never visible "
-                  f"-{counts['never_visible']}, clones {counts['clones']}, "
-                  f"splits {counts['splits']}, new +{counts['new']}, "
-                  f"opacity -{counts['opacity_pruned']}, world size "
-                  f"-{counts['world_size_pruned']}) in "
-                  f"{counts['ms']:.1f} ms", flush=True)
-            event(iteration, "densify", counts)
+            # flip time-split mode (reference train.py:356-357)
+            if "flip" in events:
+                no_time_split = False
+                (train_step, densify_fn, eval_render, eval_render360,
+                 eval_render_half, cfg_now) = build_fns(no_time_split)
+                event(iteration, "flip")
 
-        if "reset" in events:
-            state = reset_opacity_state(state, cfg_now)
-            event(iteration, "reset")
+            if "densify" in events:
+                size_on = (iteration > args.opacity_reset_interval
+                           and args.prune_big_point > 0)
+                size_threshold = (args.size_threshold
+                                  // scene.resolution_scales[0]
+                                  if size_on else None)
+                t0 = time.perf_counter()
+                state, counts = densify_fn(state, generator,
+                                           float(scene.cameras_extent),
+                                           size_threshold)
+                counts["ms"] = (time.perf_counter() - t0) * 1e3
+                counts["world_size_prune"] = size_on
+                print(f"[{iteration}] densify: {counts['before']} -> "
+                      f"{counts['after']} gaussians (never visible "
+                      f"-{counts['never_visible']}, clones "
+                      f"{counts['clones']}, splits {counts['splits']}, new "
+                      f"+{counts['new']}, "
+                      f"opacity -{counts['opacity_pruned']}, world size "
+                      f"-{counts['world_size_pruned']}) in "
+                      f"{counts['ms']:.1f} ms", flush=True)
+                event(iteration, "densify", counts)
 
-        if iteration % 10 == 0 or iteration == 1:
-            ema = 0.4 * float(loss) + 0.6 * ema
-            n_now = state.params["xyz"].shape[0]
-            rate = (iteration - first_iter) / max(time.time() - t_start, 1e-9)
-            print(f"[{iteration}/{args.iterations}] loss={ema:.5f} "
-                  f"pts={n_now} instances={log['num_pairs']} "
-                  f"it/s={rate:.2f}", flush=True)
-            tb.scalars(iteration, log, n_now)
+            if "reset" in events:
+                state = reset_opacity_state(state, cfg_now)
+                event(iteration, "reset")
 
-        if iteration in args.test_iterations:
-            final = iteration == args.iterations
-            results = complete_eval(iteration, args, scene, state,
-                                    sh_degree, eval_render, is_final=final,
-                                    save_raydrop_data=final,
-                                    eval_render360=eval_render360)
-            event(iteration, "eval", results)
+            if iteration % 10 == 0 or iteration == 1:
+                ema = 0.4 * float(loss) + 0.6 * ema
+                n_now = state.params["xyz"].shape[0]
+                rate = (iteration - first_iter) / max(time.time() - t_start,
+                                                      1e-9)
+                print(f"[{iteration}/{args.iterations}] loss={ema:.5f} "
+                      f"pts={n_now} instances={log['num_pairs']} "
+                      f"it/s={rate:.2f}", flush=True)
+                tb.scalars(iteration, log, n_now)
 
-        if iteration % args.vis_step == 0 or iteration == 1:
-            pkg = eval_render(state.params, state.aux.alive, state.prior,
-                              camera_to_batch(cam, device), sh_degree)
-            imgs = [visualize_depth(pkg.depth.cpu().numpy(),
-                                    scale_factor=args.scale_factor)]
-            if cam.pts_depth is not None:
-                imgs.append(visualize_depth(cam.pts_depth,
-                                            scale_factor=args.scale_factor))
-            save_image(make_image_grid(imgs, nrow=2),
-                       os.path.join(vis_path, f"{iteration:05d}_"
-                                              f"{cam.colmap_id:03d}.png"))
-            event(iteration, "vis")
+            if iteration in args.test_iterations:
+                final = iteration == args.iterations
+                results = complete_eval(iteration, args, scene, state,
+                                        sh_degree, eval_render, is_final=final,
+                                        save_raydrop_data=final,
+                                        eval_render360=eval_render360)
+                event(iteration, "eval", results)
 
-        if "upscale" in events:
-            scene.up_scale()
-            next_w, next_h = scene.get_wh()
-            prior = raydrop_prior_upscale(state.prior, next_h, next_w)
-            state = state._replace(prior=prior,
-                                   prior_opt=PriorAdam.init(prior))
-            (train_step, densify_fn, eval_render, eval_render360,
-             cfg_now) = build_fns(no_time_split)
-            event(iteration, "upscale")
+            if iteration % args.vis_step == 0 or iteration == 1:
+                pkg = eval_render(state.params, state.aux.alive, state.prior,
+                                  camera_to_batch(cam, device), sh_degree)
+                imgs = [visualize_depth(pkg.depth.cpu().numpy(),
+                                        scale_factor=args.scale_factor)]
+                if cam.pts_depth is not None:
+                    imgs.append(visualize_depth(
+                        cam.pts_depth, scale_factor=args.scale_factor))
+                save_image(make_image_grid(imgs, nrow=2),
+                           os.path.join(vis_path, f"{iteration:05d}_"
+                                                  f"{cam.colmap_id:03d}.png"))
+                event(iteration, "vis")
 
-        if "checkpoint" in events:
-            print(f"\n[ITER {iteration}] Saving Checkpoint", flush=True)
-            path = checkpoint_path(args.model_path, iteration)
-            t0 = time.perf_counter()
-            save_checkpoint(path, state, iteration)
-            event(iteration, "checkpoint", dict(
-                path=path, seconds=time.perf_counter() - t0,
-                bytes=os.path.getsize(path)))
+            if "upscale" in events:
+                scene.up_scale()
+                next_w, next_h = scene.get_wh()
+                prior = raydrop_prior_upscale(state.prior, next_h, next_w)
+                state = state._replace(prior=prior,
+                                       prior_opt=PriorAdam.init(prior))
+                (train_step, densify_fn, eval_render, eval_render360,
+                 eval_render_half, cfg_now) = build_fns(no_time_split)
+                event(iteration, "upscale")
+
+            if "checkpoint" in events:
+                print(f"\n[ITER {iteration}] Saving Checkpoint", flush=True)
+                path = checkpoint_path(args.model_path, iteration)
+                t0 = time.perf_counter()
+                save_checkpoint(path, state, iteration)
+                event(iteration, "checkpoint", dict(
+                    path=path, seconds=time.perf_counter() - t0,
+                    bytes=os.path.getsize(path)))
+
+            vis_mgr.checkout(iteration)
+    finally:
+        vis_mgr.close()
 
     if prof is not None:
         prof.stop()
@@ -334,14 +389,14 @@ def training(args, device, init_params=None, on_step=None, on_event=None):
 
 def load_args(config, base_config="configs/base.yaml", overrides=()):
     """The run's config: base_config <- config <- ``key=val`` overrides,
-    merged as the root train.py merges them: t_grad off for a static
-    scene, ``iterations`` appended to the test and checkpoint
+    merged as the root train.py merges them (:503-509): t_grad off for a
+    static scene, ``iterations`` appended to the save, checkpoint and test
     iterations."""
     from gslidar_tpu_torch.config import Config, load_run_config
     args = load_run_config(base_config, config, list(overrides))
     if not args.dynamic:
         Config.update(args, "t_grad", False)
-    for k in ("checkpoint_iterations", "test_iterations"):
+    for k in ("save_iterations", "checkpoint_iterations", "test_iterations"):
         Config.update(args, k, list(args[k]) + [args.iterations])
     return args
 
@@ -378,36 +433,64 @@ def log_to(path):
             sys.stdout, sys.stderr = saved
 
 
-def main(argv=None):
+def parse_cli(argv=None):
+    """The command line -> (its flags, the run's config), read as the root
+    train.py reads it (:472-488)."""
     from gslidar_tpu_torch.config import Config
-    from gslidar_tpu_torch.engine.refine import refine, refine_test
-    from gslidar_tpu_torch.utils.general import seed_everything
-
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--config", required=True)
     parser.add_argument("--base_config", default="configs/base.yaml")
     parser.add_argument("--start_checkpoint", default=None)
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--debug_cuda", action="store_true")
     parser.add_argument("--test_only", action="store_true")
     parser.add_argument("--median_depth", action="store_true")
     parser.add_argument("--skip_refine", action="store_true")
     parser.add_argument("--show_log", action="store_true")
     known, rest = parser.parse_known_args(argv)
     args = load_args(known.config, known.base_config, rest)
-    Config.update(args, "start_checkpoint", known.start_checkpoint)
-    Config.update(args, "test_only", known.test_only)
-    Config.update(args, "median_depth", known.median_depth)
+    for k in ("start_checkpoint", "debug_cuda", "test_only", "median_depth"):
+        Config.update(args, k, getattr(known, k))
+    return known, args
+
+
+def prepare_run(args):
+    """The run directory and the settings the root train.py derives
+    before training (:489-531): an existing ``model_path`` is removed
+    unless under ``--test_only`` or ``--start_checkpoint``;
+    ``--test_only``'s settings; ``--debug_cuda`` keeps the last of
+    ``resolution_scales`` (the loaders also stop after 16 frames);
+    ``exhaust_test`` adds an eval every ``test_interval``."""
+    from gslidar_tpu_torch.config import Config
+    if (os.path.exists(args.model_path) and not args.test_only
+            and args.start_checkpoint is None):
+        shutil.rmtree(args.model_path)
+    os.makedirs(args.model_path, exist_ok=True)
+    if args.test_only:
+        test_only_args(args)
+    if args.debug_cuda:
+        Config.update(args, "resolution_scales",
+                      list(args.resolution_scales)[-1:])
+    if args.exhaust_test:
+        Config.update(args, "test_iterations",
+                      list(args.test_iterations)
+                      + list(range(0, args.iterations, args.test_interval)))
+
+
+def main(argv=None):
+    from gslidar_tpu_torch.engine.refine import refine, refine_test
+    from gslidar_tpu_torch.utils.general import seed_everything
+
+    known, args = parse_cli(argv)
     device = torch.device(known.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to train with "
                          "the plain PyTorch compositors")
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    os.makedirs(args.model_path, exist_ok=True)
+    prepare_run(args)
     with (contextlib.nullcontext() if known.show_log
           else log_to(os.path.join(args.model_path, "log.txt"))):
-        if args.test_only:
-            test_only_args(args)
         print("Optimizing " + args.model_path)
         with open(os.path.join(args.model_path, "setting.txt"), "w") as f:
             f.write("------------------ start ------------------\n")

@@ -7,7 +7,9 @@ smoke test refuses to run without a card.
   a gslidar_tpu checkpoint of a tiny Synthetic scene on the CPU in a
   subprocess where ``import jax`` and ``import gslidar_tpu`` fail;
 * the training entry point, ``python -m gslidar_tpu_torch.train``, trains
-  a tiny Synthetic scene on the CPU the same way, past a densify, writes
+  a tiny Synthetic scene on the CPU the same way (after importing the
+  OPV2V loader, its tree writer, the preprocess scripts, the viewer and
+  the numpy utilities there), past a densify, writes
   a checkpoint that gslidar_tpu reads, evaluates it, refines its ray drop
   with a U-Net whose refine.npz gslidar_tpu reads and scores it, logging
   to log.txt; ``--test_only`` and ``--skip_refine`` do what the root
@@ -125,12 +127,25 @@ TRAIN_ARGS = ["--config",
               "hw=[16,64]", "frames=4", "num_pts=1500", "refine_epochs=2"]
 
 
+# the modules no entry point above imports on the Synthetic scene
+EXTRA_MODULES = ("gslidar_tpu_torch.data.opv2v",
+                 "gslidar_tpu_torch.data.opv2v_tree",
+                 "gslidar_tpu_torch.data.preprocess.opv2v_to_gs",
+                 "gslidar_tpu_torch.data.preprocess.kitti360_to_gs",
+                 "gslidar_tpu_torch.engine.viewer",
+                 "gslidar_tpu_torch.utils.misc",
+                 "gslidar_tpu_torch.utils.system")
+
+
 def _run_train_cli(run, *flags):
     """``python -m gslidar_tpu_torch.train`` on the CPU with ``import jax``
-    blocked; returns (the subprocess, the run's log.txt)."""
+    blocked, after importing EXTRA_MODULES there; returns (the subprocess,
+    the run's log.txt)."""
     argv = ["-m", "gslidar_tpu_torch.train", *TRAIN_ARGS,
             f"model_path={run}", *flags]
-    code = (BLOCK_JAX + "import runpy, torch; torch.set_num_threads(2); "
+    code = (BLOCK_JAX + "import importlib, runpy, torch; "
+            f"[importlib.import_module(m) for m in {EXTRA_MODULES!r}]; "
+            "torch.set_num_threads(2); "
             f"sys.argv = {argv!r}; "
             "runpy.run_module('gslidar_tpu_torch.train', "
             "run_name='__main__', alter_sys=True); "

@@ -5,6 +5,8 @@ gslidar_tpu on the CPU, on seeded numpy inputs.
 
 * each loss primitive: value and gradient at rtol 1e-5 (chamfer and the
   3-NN distance: the same neighbours, exact distances);
+* the 3-NN's spatial search against its brute-force plain version,
+  exactly, on uniform, clustered, duplicated, flat and tiny clouds;
 * ``create_from_pcd`` against JAX's alive rows from the same seed: the
   same numpy draws, so equal but for the scales, which come from the 3-NN
   distances (JAX shortlists the neighbours by a matmul; the port's search
@@ -117,6 +119,41 @@ def test_loss_primitive_matches_jax(name):
     tg = torch.autograd.grad(tv, targs)
     for a, b in zip(tg, jg):
         _close(a.numpy(), b, 1e-5, name)
+
+
+def _knn_cloud(name, rng):
+    if name == "uniform":
+        return rng.uniform(-5, 5, (3000, 3))
+    if name == "clustered":             # a dense blob, a wide one, outliers
+        return np.concatenate([rng.normal(0, 0.01, (1500, 3)),
+                               rng.normal(3, 1, (1500, 3)),
+                               rng.uniform(-50, 50, (100, 3))])
+    if name == "duplicates":
+        return np.repeat(rng.uniform(-1, 1, (1000, 3)), 2, axis=0)
+    if name == "plane":                 # flat: a lidar ground
+        return np.c_[rng.uniform(-10, 10, (3000, 2)), np.zeros(3000)]
+    return rng.normal(size=(int(name[-1]), 3))          # "tiny4", "tiny9"
+
+
+@pytest.mark.parametrize("name", ["uniform", "clustered", "duplicates",
+                                  "plane", "tiny4", "tiny9", "few_columns"])
+def test_knn3_spatial_search_matches_brute_force(name, monkeypatch):
+    """``mean_sq_dist_knn3`` (Morton blocks, a grid, brute force for the
+    outliers) equals its plain version, the chunked brute force, exactly:
+    the same 3 neighbours, the same recomputed distances. ``few_columns``
+    caps a box at 4 columns of cells, so most blocks take the brute-force
+    path."""
+    from gslidar_tpu_torch.ops import knn as tk
+    if name == "few_columns":
+        monkeypatch.setattr(tk, "_MAX_COLUMNS", 4)
+    pts = torch.as_tensor(_knn_cloud(name if name != "few_columns"
+                                     else "uniform",
+                                     np.random.default_rng(2)).astype(
+        np.float32))
+    got = tk.mean_sq_dist_knn3(pts, chunk=256)
+    want = tk.mean_sq_dist_knn3_brute(pts, chunk=256)
+    assert torch.equal(got, want)
+    assert name == "duplicates" or bool((got > 0).all())
 
 
 @pytest.mark.parametrize("random_init_point", [0, 300])

@@ -183,3 +183,46 @@ def _check_resume(args, rec, tmp_path):
     assert len(losses) == 2 and all(math.isfinite(x) for x in losses)
     assert scene.get_wh() == (64, 16)           # the upscale at 10 replayed
     assert state.opt.count == loaded.opt.count + 2
+
+
+def _cli(tmp_path, *argv):
+    """``parse_cli`` and ``prepare_run`` on synthetic_smoke as the
+    training CLI runs them; returns the run config."""
+    from gslidar_tpu_torch.train import parse_cli, prepare_run
+    _, args = parse_cli(
+        ["--config", os.path.join(REPO, "configs", "synthetic_smoke.yaml"),
+         "--base_config", os.path.join(REPO, "configs", "base.yaml"),
+         "--device", "cpu", f"model_path={tmp_path / 'run'}",
+         "iterations=12", "test_interval=5", *argv])
+    prepare_run(args)
+    return args
+
+
+@pytest.mark.parametrize("exhaust", [True, False])
+def test_cli_exhaust_test_adds_evals(tmp_path, exhaust):
+    """``exhaust_test`` adds an eval every ``test_interval`` below
+    ``iterations`` (root train.py:529-531); ``iterations`` is appended to
+    the save, checkpoint and test iterations (:503-509)."""
+    args = _cli(tmp_path, f"exhaust_test={str(exhaust).lower()}")
+    assert args.test_iterations == [300, 12] + ([0, 5, 10] if exhaust
+                                                else [])
+    assert args.save_iterations == [300, 12]
+    assert args.checkpoint_iterations == [300, 12]
+
+
+@pytest.mark.parametrize("flags,kept", [
+    ((), False), (("--start_checkpoint", "ckpt/chkpnt4.npz"), True),
+    (("--test_only",), True)], ids=["fresh", "start_checkpoint",
+                                    "test_only"])
+def test_cli_removes_a_stale_model_path(tmp_path, flags, kept):
+    """An existing ``model_path`` is removed before a fresh run, and kept
+    under ``--start_checkpoint`` or ``--test_only`` (root train.py:
+    489-491)."""
+    run = tmp_path / "run"
+    (run / "ckpt").mkdir(parents=True)
+    (run / "stale.txt").write_text("from an earlier run")
+    (run / "scale_factor.txt").write_text("0.1")       # --test_only reads it
+    args = _cli(tmp_path, *flags)
+    assert (run / "stale.txt").exists() is kept
+    assert run.is_dir()
+    assert args.test_only is ("--test_only" in flags)

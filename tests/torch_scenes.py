@@ -109,12 +109,16 @@ def _rel_close(a, b, rtol, name=""):
 
 
 def assert_step_matches(jstate, tstate, cam, iteration=7001, sh=3,
-                        stats_on=True):
+                        stats_on=True, args=None, cfg_kw=None,
+                        time_shift=0.0):
     """One step of gslidar_tpu's make_train_step from ``jstate`` (its
     TrainState) and one of the port's from ``tstate`` (the same gaussians,
-    ``jstate``'s alive slots in order) on ``cam`` (``step_camera``), both
-    with ``step_args``, 16x16 tiles and JAX's XLA compositor at caps that
-    drop no instance: the loss and
+    ``jstate``'s alive slots in order) on ``cam`` (``step_camera``, or any
+    dict of its keys: the panorama's size is its GT's), both with ``args``
+    (default ``step_args``), the GaussianConfig of ``cfg_kw`` (default
+    ``random_init_point=0``), the self-supervision ``time_shift``, 16x16
+    tiles and JAX's XLA compositor at caps that drop no instance: the loss
+    and
     each logged term at rtol 1e-3; per param group ||g_port - g_jax|| <=
     1e-3 ||g_jax||, and the prior's; the densification statistics; and the
     post-Adam params where |g| >= 1e-3 max|g| of their group (the first
@@ -131,35 +135,37 @@ def assert_step_matches(jstate, tstate, cam, iteration=7001, sh=3,
     from gslidar_tpu_torch.models import gaussians as TG
     from gslidar_tpu_torch.raster.settings import RasterSettings as TS
 
-    args = step_args()
+    args = step_args() if args is None else args
+    cfg_kw = dict(random_init_point=0) if cfg_kw is None else cfg_kw
+    h, w = cam["pts_depth"].shape[-2:]
+    fov = dict(height=h, width=w, vfov=tuple(args.vfov),
+               hfov=tuple(args.hfov), num_extra_features=4)
     jstep = JT.make_train_step(
-        args, JG.GaussianConfig(random_init_point=0),
-        JS(height=STEP_H, width=STEP_W, vfov=STEP_VFOV, hfov=STEP_HFOV,
-           num_extra_features=4, pair_cap=1 << 14, tile_chunk=16,
-           tile_list_cap=4096, backend="xla"), jnp.asarray([0, 0, 0, 1.0]))
+        args, JG.GaussianConfig(**cfg_kw),
+        JS(pair_cap=1 << 14, tile_chunk=16, tile_list_cap=4096,
+           backend="xla", **fov), jnp.asarray([0, 0, 0, 1.0]))
     jcam = JT.CameraBatch(
         **{k: jnp.asarray(v, jnp.int32 if k == "towards_idx" else None)
            for k, v in cam.items()})
     js, jloss, jlog = jstep(jstate, jcam, jnp.asarray(float(iteration)),
-                            jnp.asarray(sh, jnp.int32), jnp.asarray(0.0),
+                            jnp.asarray(sh, jnp.int32),
+                            jnp.asarray(time_shift, jnp.float32),
                             jnp.asarray(stats_on))
     assert int(jlog["num_dropped"]) == 0      # the caps clipped nothing
     js = jax.tree.map(np.asarray, js)
     j0 = jax.tree.map(np.asarray, jstate)
     keep = j0.aux.alive
 
-    tstep = TT.make_train_step(
-        args, TG.GaussianConfig(random_init_point=0),
-        TS(height=STEP_H, width=STEP_W, vfov=STEP_VFOV, hfov=STEP_HFOV,
-           num_extra_features=4), torch.tensor([0, 0, 0, 1.0]))
+    tstep = TT.make_train_step(args, TG.GaussianConfig(**cfg_kw), TS(**fov),
+                               torch.tensor([0, 0, 0, 1.0]))
     tcam = TT.CameraBatch(
         viewmat=torch.as_tensor(cam["viewmat"]),
         campos=torch.as_tensor(cam["campos"]), timestamp=cam["timestamp"],
         towards_idx=cam["towards_idx"],
         pts_depth=torch.as_tensor(cam["pts_depth"]),
         pts_intensity=torch.as_tensor(cam["pts_intensity"]))
-    ts, tloss, tlog, tgrads = tstep(tstate, tcam, iteration, sh, 0.0,
-                                    stats_on)
+    ts, tloss, tlog, tgrads = tstep(tstate, tcam, iteration, sh,
+                                    float(time_shift), stats_on)
 
     _rel_close(float(tloss), float(jloss), 1e-3, "loss")
     for k, v in jlog.items():
