@@ -146,8 +146,44 @@ failing phase raises:
    densifies, each densify's counts and time, the checkpoints' size and
    save and load seconds, the eval's seconds, the viewer's ms per render
    and the peak memory by stage;
-13. the result: the card's nvidia-smi line, one JSON line of the kernels,
-   and the last line ``{"ok": true, "device": {...}}``.
+13. the multi-GPU path (``gslidar_tpu_torch.parallel``), on phase 4's
+   seeded 1M-gaussian model at kitti360_nvs_1908's widths: (a) a
+   world-size-1 NCCL group on the card (no fallback to gloo); (b)
+   ``training`` with data_parallel=true and 4 cameras per step for 10
+   steps (``DP_RUN``: DENSIFY_RUN's cadence, a densify at 8, the final
+   eval and checkpoint at 10): each step launches the forward and the
+   backward kernel 4 times each and runs 2 all-reduces, with a finite loss
+   and gradients, and the param groups with a gradient and a learning
+   rate move; then one DP step of 4 cameras against 4 sequential
+   single-camera steps from one state (the prior frozen, statistics on):
+   ``denom`` and ``max_radii2D`` equal, the accumulators and each group's
+   gradient against the sequential mean within ``DP_RTOL`` by norm;
+   camera 0's forward and backward kernels against their plain versions
+   at phase 7's bars; the DP step and a single-camera step timed in turns
+   (CUDA events, median of 10) and the DP step's peak memory; (c)
+   ``python -m torch.distributed.run --nproc_per_node=1 -m
+   gslidar_tpu_torch.train`` on configs/synthetic_smoke.yaml with
+   data_parallel=true and 2 cameras per step for 12 steps (a densify at
+   8, the checkpoint and final eval at 12), its log.txt showing the
+   ``[data_parallel] ... (nccl)`` line; (d) the hfov-sliced and SH-sharded
+   renders at n = 2 on the 66x1030 panorama and the gaussian-sharded
+   render at n = 4 on a 66x1024 one (1030 has no 4 slices of whole
+   16-pixel tile columns), each through the loopback (all n slices on
+   this card) and through the NCCL group (n = 1), against the unsliced
+   render of the same settings: the gaussian-sharded render at the JAX
+   test's bars (mean |d| < 2e-4, its 99.9th percentile < 5e-3, both times
+   1 + the reference's mean magnitude), the other two, whose 515-column
+   slices leave the unsliced tile grid, at its mean bar, and at its tail
+   bar and phase 4's interior bar on the columns >= 3 px from every
+   tile-column edge of either layout (the seam is one); the forward
+   kernel's launches rise by n per render,
+   the gaussian-sharded render drops no instance and prints its records
+   and instances per slice; each render's last slice's forward (by the
+   seam) against its plain version; each slice's stages and the unsliced
+   renders timed (CUDA events, median of 5);
+14. the result: the card's nvidia-smi line, one JSON line of the kernels
+   (kernels 1-2 with their launches on each path), and the last line
+   ``{"ok": true, "device": {...}}``.
 
 Tolerances, forward kernel vs plain: color, features, normal, alpha and
 final T at atol 1e-4; mean depth and sum w*d^2 at rtol 1e-4 + atol 1e-3;
@@ -1970,6 +2006,562 @@ def phase_opv2v(smi, device, tree_kw=None, overrides=()):
     return rec["checked"][1], rec["checked"][2], launches
 
 
+# --------------------------------------------------------------- phase 13
+# data-parallel training: B cameras per step over the group, with
+# DENSIFY_RUN's cadence cut to DP_ITERATIONS steps (a densify at 8)
+DP_CAMERAS = 4
+DP_ITERATIONS = 10
+DP_RUN = [*DENSIFY_RUN, "data_parallel=true",
+          f"data_parallel_cameras={DP_CAMERAS}"]
+DP_COMPARE_ITERATION = 5        # statistics on (densify_from_iter 4 < 5)
+# DP statistics and gradients vs 4 sequential steps: the JAX test's CPU
+# bar (tests/test_parallel_train_e2e.py:93-103), held by norm: on the
+# card the per-gaussian reduction adds in atomic order, so an element
+# built from cancelling terms may differ by more
+DP_RTOL = 2e-4
+# the sharded renders: slices n per render, and the gaussian-sharded
+# render's width, the nearest 360-degree width whose 4 slices hold whole
+# 16-pixel tile columns (1030 = 2 x 515 divides into no such slices)
+SHARD_SLICES = {"hfov": 2, "sh": 2, "gaussian": 4}
+GSHARD_WIDTH = 1024
+# the JAX test's bars (tests/test_parallel_pano.py:48-60), times 1 + the
+# reference's mean magnitude
+PANO_MEAN_BAR, PANO_TAIL_BAR = 2e-4, 5e-3
+# the hfov-sliced and SH-sharded renders' slices of 515 columns do not
+# start on the unsliced render's 16-pixel tile grid, and a splat is
+# clipped at its tight rect's edge tile (see ``stitch_vs_360``), which the
+# two layouts put in other columns: so they are held to the JAX test's
+# mean bar over every pixel and to its tail bar over the columns >=
+# STITCH_EDGE_MARGIN px from every tile-column edge of either layout (the
+# seam is one), where at most STITCH_MAX_INTERIOR of the pixels may lie
+# outside phase 3's tolerances (the JAX test's slices of 64 columns keep
+# to the grid; so do the gaussian-sharded render's, held to both bars
+# over every pixel)
+
+
+def phase_nccl(device):
+    """(a) NCCL: a world-size-1 group on the card; no fallback to gloo."""
+    import torch
+    import torch.distributed as dist
+    from gslidar_tpu_torch.parallel.shard import init_group
+    if not dist.is_nccl_available():
+        raise RuntimeError("torch.distributed has no NCCL on this machine")
+    group = init_group(device)
+    x = group.all_reduce([torch.arange(4.0, device=device)])[0]
+    torch.cuda.synchronize()
+    if (group.backend != "nccl" or group.size != 1
+            or x.tolist() != [0.0, 1.0, 2.0, 3.0]):
+        raise RuntimeError(f"NCCL group: backend {group.backend}, size "
+                           f"{group.size}, all_reduce {x.tolist()}")
+    say(13, f"NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}: a group "
+            f"of {group.size} rank on {device} ({group.backend}), one "
+            f"all_reduce through it")
+    return group
+
+
+def phase_dp_train(device, init_params, group, smi):
+    """(b) ``training`` with data_parallel=true and DP_CAMERAS cameras per
+    step for DP_ITERATIONS steps of the seeded 1M-gaussian model (the
+    launch and collective counts set to 0 just before and read just
+    after); then, from the initial state, one DP step against DP_CAMERAS
+    sequential single-camera steps, one camera's kernels against their
+    plain versions, and the timings. Returns the kernels' largest errors
+    and the run's launches."""
+    import math
+    import random
+    import shutil
+    import statistics
+    import numpy as np
+    import torch
+    import gslidar_tpu_torch.raster.composite_op as co
+    from gslidar_tpu_torch.engine.train import (camera_to_batch,
+                                                init_train_state,
+                                                make_train_step)
+    from gslidar_tpu_torch.microbench.timing import time_ms
+    from gslidar_tpu_torch.models import gaussians as G
+    from gslidar_tpu_torch.models.gaussians import PARAM_KEYS
+    from gslidar_tpu_torch.models.optim import group_lrs
+    from gslidar_tpu_torch.models.raydrop_prior import init_raydrop_prior
+    from gslidar_tpu_torch.parallel.shard import (camera_at,
+                                                  make_parallel_train_step,
+                                                  stack_camera_batch)
+    from gslidar_tpu_torch.raster.composite_bwd import composite_backward
+    from gslidar_tpu_torch.raster.composite_fwd import composite_forward
+    from gslidar_tpu_torch.render import gaussian_config, raster_settings
+    from gslidar_tpu_torch.train import training
+
+    run = os.path.join(REPO, "build", "chip_smoke_dp")
+    shutil.rmtree(run, ignore_errors=True)
+    args = train_args(run, DP_ITERATIONS, DP_RUN)
+    random.seed(SEED)
+    np.random.seed(SEED)
+    rec = dict(reduces=[], step_ms={}, events={})
+    bad, moved = [], {}
+    lrs = group_lrs(args, 1)
+
+    def mark():
+        torch.cuda.synchronize()
+        rec["t"] = time.perf_counter()
+
+    def on_step(iteration, state, loss, log, grads):
+        torch.cuda.synchronize()
+        rec["step_ms"][iteration] = (time.perf_counter() - rec["t"]) * 1e3
+        steps.step()
+        rec["reduces"].append(group.calls["all_reduce"])
+        rec["events"][iteration] = []
+        if not (math.isfinite(float(loss)) and all(
+                bool(torch.isfinite(g).all()) for g in grads.values())):
+            bad.append(f"non-finite loss or gradient at {iteration}")
+        if iteration == 1:          # before any densify reorders rows
+            moved.update({k: (not torch.equal(state.params[k],
+                                              init_params[k]),
+                              bool(grads[k].any()) and lrs[k] != 0)
+                          for k in PARAM_KEYS})
+        mark()
+
+    def on_event(iteration, name, state, info):
+        steps.skip()
+        rec["events"][iteration].append(name)
+        mark()
+
+    composite_forward.launches = 0
+    composite_backward.launches = 0
+    group.calls.clear()
+    steps = StepLaunches()
+    mark()
+    t0 = time.perf_counter()
+    state, scene, losses = training(args, device, init_params=init_params,
+                                    on_step=on_step, on_event=on_event,
+                                    group=group)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = (composite_forward.launches, composite_backward.launches)
+    reduces = [b - a for a, b in zip([0] + rec["reduces"], rec["reduces"])]
+    fired = {it: ev for it, ev in rec["events"].items() if ev}
+    say(13, f"data-parallel training through training(): {len(losses)} "
+            f"steps of {DP_CAMERAS} cameras from {NUM_GAUSSIANS} gaussians "
+            f"at {HW[0]}x{HW[1]} (" + ", ".join(DP_RUN) + f") | events "
+            f"{fired} | launches forward {launches[0]}, backward "
+            f"{launches[1]}, per step {steps.per_step} (and "
+            f"{steps.other[0]} forwards of the depth visualizations and the "
+            f"eval) | all_reduce per step {reduces} | loss "
+            f"{[round(x, 5) for x in losses]} | moved by step 1 "
+            f"{sorted(k for k in moved if moved[k][0])} | median step "
+            f"{_median_ms(rec['step_ms'], range(2, DP_ITERATIONS + 1)):.3f} "
+            f"ms (host clock, synchronised) | {wall_s:.2f} s")
+    shutil.rmtree(run, ignore_errors=True)
+    core = ("xyz", "f_dc", "opacity", "scaling", "rotation")
+    if (bad or len(losses) != DP_ITERATIONS
+            or any(d != (DP_CAMERAS, DP_CAMERAS) for d in steps.per_step)
+            or any(r != 2 for r in reduces)
+            or "densify" not in rec["events"].get(8, [])
+            or "eval" not in rec["events"].get(DP_ITERATIONS, [])
+            or not all(moved[k][0] and moved[k][1] for k in core)
+            or any(m != expect for m, expect in moved.values())):
+        raise RuntimeError(f"the data-parallel training run failed its "
+                           f"checks: {bad}, per step {steps.per_step}, "
+                           f"all_reduce per step {reduces}, events {fired}")
+
+    # one DP step against DP_CAMERAS sequential steps from one state (the
+    # prior frozen, so that the sequential steps see the DP step's inputs)
+    h, w = HW
+    cmp_args = train_args(run, DP_ITERATIONS, DP_RUN
+                          + ["raydrop_prior_lr=0.0"])
+    cfg = gaussian_config(cmp_args)
+    settings = raster_settings(cmp_args, h, w)
+    bg = torch.tensor([0.0, 0.0, 0.0, 1.0], device=device)
+    n = init_params["xyz"].shape[0]
+    state0 = init_train_state(init_params, G.GaussianAux.zeros(n, device),
+                              init_raydrop_prior(h, w, device))
+    batch = stack_camera_batch([camera_to_batch(c, device) for c in
+                                scene.get_train_cameras()[:DP_CAMERAS]])
+    shifts = [0.0] * DP_CAMERAS
+    it = DP_COMPARE_ITERATION
+    dp_step = make_parallel_train_step(cmp_args, cfg, settings, bg, group,
+                                       n_cameras=DP_CAMERAS)
+    seq_step = make_train_step(cmp_args, cfg, settings, bg)
+    captured = []
+    bwd_orig = co.composite_backward
+
+    def bwd_keep(*a):
+        captured.append(a)
+        return bwd_orig(*a)
+
+    co.composite_backward = bwd_keep
+    try:
+        dp_state, _, _, dp_grads = dp_step(state0, batch, it, SH_DEGREE,
+                                           shifts, True, False)
+    finally:
+        co.composite_backward = bwd_orig
+    s, seq_grads = state0, []
+    for i in range(DP_CAMERAS):
+        s, _, _, g = seq_step(s, camera_at(batch, i), it, SH_DEGREE,
+                              shifts[i], True, apply_update=False)
+        seq_grads.append(g)
+    torch.cuda.synchronize()
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+    equal = {k: bool(torch.equal(getattr(dp_state.aux, k),
+                                 getattr(s.aux, k)))
+             for k in ("denom", "max_radii2D")}
+    accum = {k: rel(getattr(dp_state.aux, k), getattr(s.aux, k))
+             for k in ("xyz_gradient_accum", "t_gradient_accum")}
+    grad_err = {k: rel(g, sum(sg[k] for sg in seq_grads) / DP_CAMERAS)
+                for k, g in dp_grads.items()
+                if bool(sum(sg[k] for sg in seq_grads).any())}
+    say(13, f"one DP step of {DP_CAMERAS} cameras vs {DP_CAMERAS} sequential "
+            f"single-camera steps from one state (iteration {it}, "
+            f"statistics on): equal {equal}, denom max "
+            f"{float(dp_state.aux.denom.max())} | |dp - seq| / |seq| "
+            f"{json.dumps({k: float(f'{v:.3g}') for k, v in accum.items()})}"
+            f" | gradient vs the sequential mean, by group "
+            f"{json.dumps({k: float(f'{v:.3g}') for k, v in grad_err.items()})}"
+            f" (bar {DP_RTOL})")
+    if not (all(equal.values()) and float(dp_state.aux.denom.max()) > 0
+            and max(accum.values()) <= DP_RTOL
+            and max(grad_err.values()) <= DP_RTOL):
+        raise RuntimeError("the data-parallel step disagrees with the "
+                           "sequential steps")
+    del dp_state, s, seq_grads
+
+    # camera 0's kernels against their plain versions, at phase 7's bars
+    saved = (composite_forward.launches, composite_backward.launches)
+    rows, starts, fwd, _, params8, st, C, S, ckpt = captured[0]
+    ok_f, summ_f, _, _ = run_pair(rows, starts, params8, st, C, S)
+    ok_b, summ_b = run_bwd_pair(rows, starts, fwd,
+                                random_cotangents(st, C, S, SEED + 23,
+                                                  device),
+                                params8, st, C, S, ckpt)
+    composite_forward.launches, composite_backward.launches = saved
+    del captured
+    for kind, ok, summ in (("forward", ok_f, summ_f),
+                           ("backward", ok_b, summ_b)):
+        say(13, f"{kind} kernel vs plain on the DP step's camera 0 "
+                f"({rows.shape[0]} instances): {'ok' if ok else 'FAIL'} "
+                f"{json.dumps(summ)}")
+    if not (ok_f and ok_b):
+        raise RuntimeError("a kernel disagrees with its plain version on "
+                           "the data-parallel step")
+
+    # the DP step against one single-camera step, in turns
+    def dp():
+        dp_step(state0, batch, it, SH_DEGREE, shifts, True)
+
+    def single():
+        seq_step(state0, camera_at(batch, 0), it, SH_DEGREE, 0.0, True)
+    dp(), single()
+    torch.cuda.reset_peak_memory_stats()
+    dp()
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = {"dp": [], "single": []}
+    for _ in range(5):
+        for k, fn in (("dp", dp), ("single", single), ("single", single),
+                      ("dp", dp)):
+            ms[k].append(time_ms(fn, device))
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    say(13, f"timing on {smi} (CUDA events, median of {len(ms['dp'])}): "
+            f"DP step of {DP_CAMERAS} cameras {med['dp']:.3f} ms "
+            f"({med['dp'] / DP_CAMERAS:.3f} ms per camera), single-camera "
+            f"step {med['single']:.3f} ms | peak memory of the DP step "
+            f"{peak_gb:.2f} GiB")
+    return (summ_f["raw_max_abs_err"], summ_b["raw_max_abs_err"], launches,
+            med, peak_gb)
+
+
+def phase_dp_cli(device):
+    """(c) ``python -m torch.distributed.run --nproc_per_node=1 -m
+    gslidar_tpu_torch.train`` on configs/synthetic_smoke.yaml with
+    data_parallel=true and 2 cameras per step: 12 steps, a densify at 8,
+    the checkpoint and the final eval at 12; read from its log.txt."""
+    import shutil
+    import sys
+    env = dict(os.environ, PYTHONPATH=REPO)
+    run = os.path.join(REPO, "build", "chip_smoke_dp_cli")
+    shutil.rmtree(run, ignore_errors=True)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node=1", "-m", "gslidar_tpu_torch.train",
+           "--config", "configs/synthetic_smoke.yaml", "--skip_refine",
+           *(["--device", "cpu"] if device.type == "cpu" else []),
+           "iterations=12", "densify_from_iter=4", "densification_interval=4",
+           "densify_until_iter=10", f"seed={SEED}", f"model_path={run}",
+           "data_parallel=true", "data_parallel_cameras=2"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+                       text=True, timeout=600)
+    wall_s = time.perf_counter() - t0
+    lines = [""]
+    if os.path.exists(os.path.join(run, "log.txt")):
+        with open(os.path.join(run, "log.txt")) as f:
+            lines = f.read().strip().splitlines() or [""]
+    dp_line = [ln for ln in lines if ln.startswith("[data_parallel]")] or [""]
+    densify = [ln for ln in lines if "] densify:" in ln]
+    trained = [ln for ln in lines if ln.startswith("trained ")] or [""]
+    need = [os.path.join(run, "eval", "test_12_render", "metrics.json"),
+            os.path.join(run, "ckpt", "chkpnt12.npz")]
+    say(13, f"data-parallel CLI under torch.distributed.run: rc "
+            f"{r.returncode} in {wall_s:.1f} s | {dp_line[0]} | "
+            f"{' | '.join(densify)} | {trained[-1]} | present: "
+            f"{[os.path.relpath(q, run) for q in need if os.path.exists(q)]}")
+    if (r.returncode != 0
+            or dp_line[0] != f"[data_parallel] 2 cameras/iter over 1 ranks "
+                             f"({backend})"
+            or not any(ln.startswith("[8] densify:") for ln in densify)
+            or "trained 12 steps" not in trained[-1]
+            or not all(os.path.exists(q) for q in need)):
+        raise RuntimeError(f"the data-parallel CLI failed:\n"
+                           f"{chr(10).join(lines[-30:])}\n{r.stdout[-2000:]}"
+                           f"\n{r.stderr[-3000:]}")
+    shutil.rmtree(run, ignore_errors=True)
+
+
+def _pano_bars(ref, got, cols=None):
+    """The JAX test's measures of got against ref, per plane: (mean |d|,
+    99.9th percentile of |d|) over 1 + mean |ref|, on the columns
+    ``cols`` (a [W] bool mask; all when None)."""
+    import torch
+    out = {}
+    for name in ("color", "feature", "depth", "alpha", "final_T"):
+        a, b = getattr(ref, name).float(), got[name].float()
+        if cols is not None:
+            a, b = a[..., cols], b[..., cols]
+        d = (a - b).abs().flatten()
+        scale = 1.0 + float(a.abs().mean())
+        k = max(int(round(0.999 * (d.numel() - 1))), 0)
+        out[name] = (float(d.mean()) / scale,
+                     float(torch.kthvalue(d.cpu(), k + 1).values) / scale)
+    return out
+
+
+def slice_edge_distance(W, n, tile_w):
+    """Per column of a W-wide 360-degree panorama, the distance in pixels
+    to the nearest tile-column edge of the unsliced grid or of any of its
+    n slices' grids (each slice W/n wide, its grid starting at its first
+    column), around the seam."""
+    import numpy as np
+    Wl = W // n
+    edges = set(range(0, W, tile_w))
+    for d in range(n):
+        edges |= set(range(d * Wl, (d + 1) * Wl, tile_w))
+    c = np.arange(W)
+    return np.min([np.minimum((c - e) % W, (e - 1 - c) % W)
+                   for e in edges], axis=0)
+
+
+def _edge_check(ref, got, dist):
+    """phase 4's stitch check: the pixels outside phase 3's tolerances
+    (color, features and alpha at 2 x ATOL, as T may stop on either side
+    of the 1e-4 floor; mean depth at DEPTH_ATOL + DEPTH_RTOL |d|), by
+    their columns' distance ``dist`` to a tile-column edge: (the share of
+    them < STITCH_EDGE_MARGIN from an edge, the share of the pixels >=
+    STITCH_EDGE_MARGIN from every edge that are out, the counts by
+    distance)."""
+    import numpy as np
+    over = [np.abs(got[k].cpu().numpy() - getattr(ref, k).cpu().numpy())
+            > 2 * ATOL for k in ("color", "feature", "alpha")]
+    d0 = ref.depth[0].cpu().numpy()
+    over.append((np.abs(got["depth"][0].cpu().numpy() - d0)
+                 > DEPTH_ATOL + DEPTH_RTOL * np.abs(d0))[None])
+    bad = np.any([o.any(axis=0) for o in over], axis=0)       # [H, W]
+    interior = dist >= STITCH_EDGE_MARGIN
+    by_dist = np.bincount(dist[np.nonzero(bad)[1]],
+                          minlength=STITCH_EDGE_MARGIN + 1)
+    at_edges = (float(by_dist[:STITCH_EDGE_MARGIN].sum() / by_dist.sum())
+                if by_dist.sum() else 1.0)
+    return at_edges, float(bad[:, interior].mean()), by_dist.tolist()
+
+
+def phase_sharded_renders(args, params, alive, cam, group, smi):
+    """(d) The three sharded 360-degree renders of phase 4's model from
+    camera ``cam``: hfov-sliced and SH-sharded at n = 2 on 66x1030, the
+    gaussian-sharded at n = 4 on 66x1024, each through the loopback (all n
+    slices on this card) and through ``group`` (NCCL, n = 1), against the
+    unsliced render of the same settings; the forward kernel's launches
+    must rise by n per render; one slice's forward against its plain
+    version; each slice's stages timed. Returns the forward's largest
+    error and the launches."""
+    import dataclasses
+    import statistics
+    import torch
+    import gslidar_tpu_torch.parallel.pano_shard as ps
+    import gslidar_tpu_torch.raster.composite_op as co
+    from gslidar_tpu_torch.engine.evaluate import wrap360_settings
+    from gslidar_tpu_torch.engine.train import camera_to_batch
+    from gslidar_tpu_torch.microbench.timing import time_ms
+    from gslidar_tpu_torch.models import gaussians as G
+    from gslidar_tpu_torch.parallel.comm import Loopback
+    from gslidar_tpu_torch.raster.composite_fwd import composite_forward
+    from gslidar_tpu_torch.raster.rasterize import rasterize
+    from gslidar_tpu_torch.render import gaussian_config, raster_settings
+
+    device = alive.device
+    cfg = gaussian_config(args)
+    batch = camera_to_batch(cam, device)
+    h, w = HW
+    s360 = dataclasses.replace(wrap360_settings(raster_settings(args, h, w)),
+                               compute_distortion=False)
+    s_lin = dataclasses.replace(s360, wrap_x=False)
+    s_gs = dataclasses.replace(s360, width=GSHARD_WIDTH)
+    bg = torch.tensor([0.0, 0.0, 0.0, 1.0], device=device)
+    with torch.no_grad():
+        opacity = G.get_opacity(params)[:, 0]
+        inputs = (G.get_xyz_shm(params, batch.timestamp, cfg),
+                  G.get_scaling(params), params["rotation"], opacity,
+                  G.get_features(params),
+                  torch.cat([torch.clamp_max(G.get_scaling_t(params), 2.0),
+                             G.get_inst_velocity(params, cfg)], 1),
+                  alive & (opacity > 1.0 / 255.0), batch.viewmat,
+                  batch.campos, bg, SH_DEGREE, float(args.scale_factor))
+        refs = {"hfov": rasterize(*inputs, s_lin),
+                "gaussian": rasterize(*inputs, s_gs)}
+    refs["sh"] = refs["hfov"]
+    settings = {"hfov": s_lin, "sh": s_lin, "gaussian": s_gs}
+
+    fns = {"hfov": ps.render_pano_sharded, "sh": ps.render_pano_sh_sharded,
+           "gaussian": ps.render_pano_gaussian_sharded}
+
+    captured = []
+    fwd_orig = (co.composite_forward, ps.composite_forward)
+
+    def fwd_keep(*a, **k):
+        captured[:] = [a]
+        return fwd_orig[0](*a, **k)
+
+    results, bad, all_launches = {}, [], 0
+    co.composite_forward = ps.composite_forward = fwd_keep
+    try:
+        for kind, n in SHARD_SLICES.items():
+            for label, grp in (("loopback", Loopback(n)), ("nccl", group)):
+                stats = {}
+                kw = dict(stats=stats) if kind == "gaussian" else {}
+                composite_forward.launches = 0
+                with torch.no_grad():
+                    out = fns[kind](*inputs, settings[kind], grp, **kw)
+                torch.cuda.synchronize()
+                launched = composite_forward.launches
+                all_launches += launched
+                got = dict(zip(("color", "feature", "depth", "alpha",
+                                "contrib", "final_T"), out))
+                bars = _pano_bars(refs[kind], got)
+                dropped = out[6] if kind == "gaussian" else 0
+                ok = (launched == grp.size and dropped == 0 and all(
+                    m < PANO_MEAN_BAR for m, _ in bars.values()))
+                r = dict(slices=grp.size, launches=launched,
+                         mean_and_tail={k: [float(f"{x:.3g}") for x in v]
+                                        for k, v in bars.items()})
+                if kind == "gaussian":
+                    ok = ok and all(t < PANO_TAIL_BAR
+                                    for _, t in bars.values())
+                else:
+                    dist = slice_edge_distance(s_lin.width, grp.size,
+                                               s_lin.tile_w)
+                    inner = _pano_bars(refs[kind], got, torch.as_tensor(
+                        dist >= STITCH_EDGE_MARGIN, device=device))
+                    at_edges, interior, by_dist = _edge_check(
+                        refs[kind], got, dist)
+                    ok = ok and interior <= STITCH_MAX_INTERIOR and all(
+                        t < PANO_TAIL_BAR for _, t in inner.values())
+                    r.update(interior_mean_and_tail={
+                                 k: [float(f"{x:.3g}") for x in v]
+                                 for k, v in inner.items()},
+                             out_of_tolerance_by_px_to_an_edge=by_dist,
+                             share_at_edges=round(at_edges, 4),
+                             interior_share_out=float(f"{interior:.3g}"))
+                results[(kind, label)] = dict(
+                    r, ok=ok, num_dropped=dropped,
+                    per_slice={d: stats[d] for d in sorted(stats)})
+                if not ok:
+                    bad.append((kind, label))
+                if label == "loopback":
+                    results[(kind, "captured")] = captured[0]
+    finally:
+        co.composite_forward, ps.composite_forward = fwd_orig
+    for (kind, label), r in results.items():
+        if label != "captured":
+            say(13, f"{kind} render, {label} ({r['slices']} slices of "
+                    f"{settings[kind].height}x{settings[kind].width}) vs "
+                    f"the unsliced render: {'ok' if r['ok'] else 'FAIL'} "
+                    + json.dumps({k: v for k, v in r.items()
+                                  if k not in ("ok", "slices")}))
+
+    # the last slice's forward (the one beside the seam) vs plain
+    errs = []
+    saved = composite_forward.launches
+    for kind in SHARD_SLICES:
+        rows, starts, params8, st, C, S = results[(kind, "captured")][:6]
+        ok, summ, _, _ = run_pair(rows, starts, params8, st, C, S)
+        errs.append(summ["raw_max_abs_err"])
+        say(13, f"forward kernel vs plain on the {kind} render's last slice "
+                f"({rows.shape[0]} instances, {st.height}x{st.width}, "
+                f"wrap_x {st.wrap_x}, wrap period {st.dxp_wrap_period}, "
+                f"angle bounds {[round(x, 6) for x in params8[2:6]]}): "
+                f"{'ok' if ok else 'FAIL'} {json.dumps(summ)}")
+        if not ok:
+            bad.append((kind, "kernel vs plain"))
+        del rows, starts
+    composite_forward.launches = saved
+    del results
+    if bad:
+        raise RuntimeError(f"the sharded renders failed their checks: {bad}")
+
+    # each slice's stages, timed alone (one of n cards' share of the
+    # render, communication excluded), and the unsliced renders
+    means, scales, rots, _, shs = inputs[:5]
+    stages = {f"unsliced {h}x{s360.width}": lambda: rasterize(*inputs, s360),
+              f"unsliced {h}x{s_gs.width}": lambda: rasterize(*inputs, s_gs)}
+    n = SHARD_SLICES["hfov"]
+    for d in range(n):
+        stages[f"hfov slice {d}"] = (
+            lambda d=d: ps.hfov_slice_stage(d, n, *inputs, s_lin))
+    n = SHARD_SLICES["sh"]
+    P = means.shape[0]
+    with torch.no_grad():
+        colors = torch.cat([ps.sh_colors_stage(
+            d, n, means, batch.campos, shs[d * P // n:(d + 1) * P // n],
+            SH_DEGREE) for d in range(n)])
+    for d in range(n):
+        stages[f"sh colors {d}"] = (
+            lambda d=d: ps.sh_colors_stage(
+                d, n, means, batch.campos, shs[d * P // n:(d + 1) * P // n],
+                SH_DEGREE))
+        stages[f"sh slice {d}"] = (
+            lambda d=d: ps.hfov_slice_stage(d, n, *inputs[:4], None,
+                                            *inputs[5:], s_lin,
+                                            colors_precomp=colors))
+    n = SHARD_SLICES["gaussian"]
+    Pl = P // n
+
+    def route(d):
+        return ps.route_stage(d, n, *(x[d * Pl:(d + 1) * Pl]
+                                      for x in inputs[:7]), *inputs[7:9],
+                              *inputs[10:12], s_gs)
+    with torch.no_grad():
+        sends = [route(d)[0] for d in range(n)]
+        recvs = [torch.cat([sends[s][d] for s in range(n)])
+                 for d in range(n)]
+    for d in range(n):
+        stages[f"gaussian route {d}"] = lambda d=d: route(d)
+        stages[f"gaussian slice {d}"] = (
+            lambda d=d: ps.composite_slice_stage(d, n, recvs[d], inputs[9],
+                                                 inputs[11], s_gs))
+    ms = {k: [] for k in stages}
+    with torch.no_grad():
+        for fn in stages.values():             # warm-up
+            fn()
+        for _ in range(5):
+            for k, fn in stages.items():
+                ms[k].append(time_ms(fn, device))
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    say(13, f"timing on {smi} (CUDA events, median of 5; a slice's stage is "
+            f"one of n cards' share of the render, communication excluded: "
+            f"this card runs the slices one after another, so their sum is "
+            f"no multi-GPU latency): " + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in med.items()))
+    return max(errs), all_launches, med
+
+
 # ---------------------------------------------------------------- phase 7
 def device_idle_share(fn, n):
     """Share of the wall time of n runs of fn in which no kernel, copy or
@@ -2414,6 +3006,14 @@ def main():
                            med7["backward kernel"])
     phase_train_densify(device, params, smi)
     err11, _ = phase_eval_refine(args, params, alive, prior, smi)
+    group = phase_nccl(device)
+    err13f, err13b, dp_launches, _, _ = phase_dp_train(device, params, group,
+                                                       smi)
+    phase_dp_cli(device)
+    err13r, shard_launches, _ = phase_sharded_renders(args, params, alive,
+                                                      cams[0], group, smi)
+    import torch.distributed as dist
+    dist.destroy_process_group()
     del params, alive, prior, cams, scene
     torch.cuda.empty_cache()
     err12, err12b, _ = phase_opv2v(smi, device)
@@ -2425,14 +3025,24 @@ def main():
         "source": "gslidar_tpu_torch/csrc/composite_fwd.cu",
         "replaces": "gslidar_tpu/raster/pallas_fwd.py:282",
         "launches": launches[0],
-        "max_abs_err": max(err3, err5, err11, err12),
+        "launches_by_path": {"training (phase 6)": launches[0],
+                             "data-parallel training (phase 13)":
+                                 dp_launches[0],
+                             "sharded 360-degree renders (phase 13)":
+                                 shard_launches},
+        "max_abs_err": max(err3, err5, err11, err12, err13f, err13r),
         "ms": med["kernel"], "plain_ms": med["plain"],
         "bound_ms": bound_fwd.ms, "bound_by": bound_fwd.bound_by,
         "library_ms": None}, {
         "name": "composite_bwd", "route": "cuda",
         "source": "gslidar_tpu_torch/csrc/composite_bwd.cu",
         "replaces": "gslidar_tpu/raster/pallas_bwd.py:66",
-        "launches": launches[1], "max_abs_err": max(err3b, err7, err12b),
+        "launches": launches[1],
+        "launches_by_path": {"training (phase 6)": launches[1],
+                             "data-parallel training (phase 13)":
+                                 dp_launches[1],
+                             "sharded 360-degree renders (phase 13)": 0},
+        "max_abs_err": max(err3b, err7, err12b, err13b),
         "ms": med7["backward kernel"],
         "plain_ms": med7["plain backward"],
         "bound_ms": bound_bwd.ms, "bound_by": bound_bwd.bound_by,

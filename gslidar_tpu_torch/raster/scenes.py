@@ -33,6 +33,32 @@ def splat_scene(rng, P=256, S=2, wrap=False):
         campos=np.zeros(3, np.float32))
 
 
+
+def pano_scene(rng, P=512, seam=False):
+    """P splats all around an identity camera over a 360-degree panorama's
+    vertical band, at ranges of 3-30 (log-uniform) and sizes 5 % of range
+    (tests/test_parallel_pano.py's scene, in its draw order); with
+    ``seam``, the second half clusters on the phi = +-pi seam, so that
+    splats straddle it."""
+    theta = rng.uniform(np.pi / 2 - 0.4, np.pi / 2 + 0.3, P)
+    phi = rng.uniform(-np.pi, np.pi, P)
+    r = np.exp(rng.uniform(np.log(3.0), np.log(30.0), P))
+    if seam:
+        phi[P // 2:] = np.pi + rng.normal(0, 0.08, P - P // 2)
+    means = np.stack([r * np.sin(theta) * np.sin(phi), -r * np.cos(theta),
+                      r * np.sin(theta) * np.cos(phi)], 1)
+    s = 0.05 * r
+    return dict(
+        means=means.astype(np.float32),
+        scales=np.stack([s, s, s], 1).astype(np.float32),
+        quats=rng.normal(size=(P, 4)).astype(np.float32),
+        opac=rng.uniform(0.3, 0.9, P).astype(np.float32),
+        shs=(rng.normal(size=(P, 16, 4)) * 0.3).astype(np.float32),
+        feats=rng.normal(size=(P, 4)).astype(np.float32),
+        mask=np.ones(P, bool),
+        viewmat=np.eye(4, dtype=np.float32),
+        campos=np.zeros(3, np.float32))
+
 def deep_tile_scene(rng, P=3000, S=2):
     """P splats crowded into the view of one 16x16 tile of a 30x130
     panorama over vfov (-20, 20) and hfov (-60, 60) degrees (tile 4:

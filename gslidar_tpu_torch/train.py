@@ -28,7 +28,15 @@ prior, and trains from iteration 1 (or the checkpoint's) to
 * with ``viewer`` on, the live viewer (:249-279, 466; ``engine/viewer.py``
   on ``viewer_port``): each iteration runs between its ``checkin`` and
   ``checkout``, so its renders (``viewer_render``) come between steps,
-  and its server stops when the loop ends.
+  and its server stops when the loop ends;
+* with ``data_parallel`` on and B = ``data_parallel_cameras`` (default:
+  the world size) above 1, camera-data-parallel training (:141-153,
+  :211-216, :300-318; ``parallel/shard.py``): every rank draws the same
+  B picks from the same stream, first pick first, and takes its B/W of
+  them; densify runs on every rank from the same seeded generator, so
+  the state stays identical across ranks. Rank 0 alone writes the
+  checkpoints, the depth PNGs and the logs, evaluates, refines and
+  serves the viewer; the other ranks meet it at a barrier.
 
 Then, unless ``--skip_refine``, the ray-drop U-Net trains on the final
 eval's renders (``refine``, skipped under ``--test_only``) and is scored
@@ -41,6 +49,15 @@ eval's renders (``refine``, skipped under ``--test_only``) and is scored
 ``model_path`` are the root entry's (``parse_cli``, ``prepare_run``).
 The tensors are sized exactly, so the JAX loop's capacity growth and
 instance caps have no counterpart.
+
+Data-parallel training on W GPUs of one machine:
+
+    python -m torch.distributed.run --nproc_per_node=W \
+        -m gslidar_tpu_torch.train --config ... data_parallel=true
+
+Each rank runs on ``cuda:LOCAL_RANK`` over NCCL (gloo with ``--device
+cpu``); without ``torch.distributed.run``, ``data_parallel=true`` makes a
+group of one rank.
 """
 
 from __future__ import annotations
@@ -70,6 +87,9 @@ from gslidar_tpu_torch.models.gaussians import GaussianAux, create_from_pcd
 from gslidar_tpu_torch.models.raydrop_prior import (PriorAdam,
                                                     init_raydrop_prior,
                                                     raydrop_prior_upscale)
+from gslidar_tpu_torch.parallel.shard import (init_group,
+                                              make_parallel_train_step,
+                                              stack_camera_batch)
 from gslidar_tpu_torch.render import (build_scene, gaussian_config,
                                       raster_settings)
 from gslidar_tpu_torch.utils.general import (make_image_grid, save_image,
@@ -161,9 +181,14 @@ class _TensorBoard:
             self.writer.close()
 
 
-def training(args, device, init_params=None, on_step=None, on_event=None):
+def training(args, device, init_params=None, on_step=None, on_event=None,
+             group=None):
     """Train from iteration 1, or from ``args.start_checkpoint``'s, to
     ``args.iterations``.
+
+    With ``args.data_parallel``, the steps train B cameras over ``group``
+    (``parallel.shard.init_group(device)`` when None), B =
+    ``args.data_parallel_cameras`` or the group's size.
 
     ``init_params`` (a params dict on ``device``) replaces the gaussians
     ``create_from_pcd`` would make. ``on_step(iteration, state, loss, log,
@@ -176,12 +201,33 @@ def training(args, device, init_params=None, on_step=None, on_event=None):
     no step and runs the final eval. Returns (state, scene, losses): the
     final TrainState and the loss of every step taken.
     """
+    # camera-data-parallel training (root train.py:141-153)
+    n_par = 1
+    if args.get("data_parallel", False):
+        group = group if group is not None else init_group(device)
+        n_par = int(args.get("data_parallel_cameras", 0)) or group.size
+        if n_par % group.size:
+            raise ValueError(f"data_parallel_cameras={n_par} does not "
+                             f"divide over {group.size} ranks")
+    data_parallel = n_par > 1
+    lead = group is None or group.rank == 0
+
+    def sync():
+        # the other ranks meet rank 0 after its work alone
+        if group is not None:
+            group.barrier()
+
     vis_path = os.path.join(args.model_path, "visualization")
     os.makedirs(vis_path, exist_ok=True)
     os.makedirs(os.path.join(args.model_path, "ckpt"), exist_ok=True)
     scene = build_scene(args, shuffle=bool(args.shuffle))
-    with open(os.path.join(args.model_path, "scale_factor.txt"), "w") as f:
-        f.write(str(args.scale_factor))
+    if lead:
+        with open(os.path.join(args.model_path, "scale_factor.txt"),
+                  "w") as f:
+            f.write(str(args.scale_factor))
+    if data_parallel:
+        print(f"[data_parallel] {n_par} cameras/iter over {group.size} "
+              f"ranks ({group.backend})", flush=True)
 
     if init_params is None:
         pts, colors, _normals, times = scene.scene_info.point_cloud
@@ -209,7 +255,11 @@ def training(args, device, init_params=None, on_step=None, on_event=None):
         # the viewer's half-resolution twin while its camera moves
         # (root train.py:222-229)
         half = raster_settings(args, max(h // 2, 8), max(w // 2, 8))
-        return (make_train_step(args, cfg, settings, bg),
+        step = (make_parallel_train_step(args, cfg, settings, bg, group,
+                                         n_cameras=n_par)
+                if data_parallel else make_train_step(args, cfg, settings,
+                                                      bg))
+        return (step,
                 make_densify_fn(args, cfg),
                 make_eval_render(args, cfg, settings, bg),
                 make_eval_render360(args, cfg, settings, bg),
@@ -224,23 +274,37 @@ def training(args, device, init_params=None, on_step=None, on_event=None):
      cfg_now) = build_fns(no_time_split)
 
     if args.get("test_only") or first_iter == args.iterations:
-        sh_degree = min(first_iter // args.sh_increase_interval,
-                        args.sh_degree)
-        results = complete_eval(first_iter, args, scene, state, sh_degree,
-                                eval_render, is_final=True,
-                                save_raydrop_data=True,
-                                eval_render360=eval_render360)
-        event(first_iter, "eval", results)
+        if lead:
+            sh_degree = min(first_iter // args.sh_increase_interval,
+                            args.sh_degree)
+            results = complete_eval(first_iter, args, scene, state,
+                                    sh_degree, eval_render, is_final=True,
+                                    save_raydrop_data=True,
+                                    eval_render360=eval_render360)
+            event(first_iter, "eval", results)
+        sync()
         return state, scene, []
 
     rng = np.random.default_rng(args.seed)
     generator = torch.Generator(device=device).manual_seed(int(args.seed))
-    tb = _TensorBoard(os.path.join(args.model_path, "tb"))
+    tb = _TensorBoard(os.path.join(args.model_path, "tb")) if lead else None
     viewpoint_stack = []
     losses = []
+
+    def pick_camera():
+        # a camera and its self-supervision time shift (train.py:285-299)
+        nonlocal viewpoint_stack
+        cams = scene.get_train_cameras()
+        if not viewpoint_stack:
+            viewpoint_stack = list(range(len(cams)))
+        c = cams[viewpoint_stack.pop(rng.integers(len(viewpoint_stack)))]
+        if rng.random() < args.lambda_self_supervision:
+            return c, 3 * (rng.random() - 0.5) * scene.time_interval
+        return c, 0.0
+
     ema = 0.0
     t_start = time.time()
-    profile_at = int(args.get("profile_iter", 0))     # 0 = disabled
+    profile_at = int(args.get("profile_iter", 0)) if lead else 0
     prof = None
 
     def on_viewer(c2w, frame, preview=False):
@@ -253,7 +317,8 @@ def training(args, device, init_params=None, on_step=None, on_event=None):
 
     # the live viewer (root train.py:249-274): off unless ``viewer``
     vis_mgr = VisManager({"port": int(args.get("viewer_port", 8080)),
-                          "enabled": bool(args.get("viewer", False)),
+                          "enabled": lead and bool(args.get("viewer",
+                                                            False)),
                           "max_frame": args.frames,
                           "pixels_per_step": h * w}, on_viewer)
     try:
@@ -274,22 +339,23 @@ def training(args, device, init_params=None, on_step=None, on_event=None):
                 print(f"[profiler] trace written to {out}", flush=True)
             sh_degree = min(iteration // args.sh_increase_interval,
                             args.sh_degree)
-            cams = scene.get_train_cameras()
-            if not viewpoint_stack:
-                viewpoint_stack = list(range(len(cams)))
-            cam = cams[viewpoint_stack.pop(rng.integers(len(viewpoint_stack)))]
-            if rng.random() < args.lambda_self_supervision:
-                time_shift = 3 * (rng.random() - 0.5) * scene.time_interval
-            else:
-                time_shift = 0.0
+            # the first pick, then B - 1 more, each with its own shift
+            picks = [pick_camera() for _ in range(n_par)]
+            cam = picks[0][0]
 
             n_before = state.params["xyz"].shape[0]
             in_window = in_densify_window(args, iteration, n_before)[0]
             events = schedule(args, iteration, n_before, no_time_split)
+            if data_parallel:
+                batch = stack_camera_batch([camera_to_batch(c, device)
+                                            for c, _ in picks])
+                shifts = [t for _, t in picks]
+            else:
+                batch, shifts = camera_to_batch(cam, device), float(
+                    picks[0][1])
             state, loss, log, grads = train_step(
-                state, camera_to_batch(cam, device), iteration, sh_degree,
-                float(time_shift), stats_on=in_window,
-                apply_update="densify" not in events)
+                state, batch, iteration, sh_degree, shifts,
+                stats_on=in_window, apply_update="densify" not in events)
             losses.append(loss)
             if on_step is not None:
                 on_step(iteration, state, loss, log, grads)
@@ -327,7 +393,7 @@ def training(args, device, init_params=None, on_step=None, on_event=None):
                 state = reset_opacity_state(state, cfg_now)
                 event(iteration, "reset")
 
-            if iteration % 10 == 0 or iteration == 1:
+            if lead and (iteration % 10 == 0 or iteration == 1):
                 ema = 0.4 * float(loss) + 0.6 * ema
                 n_now = state.params["xyz"].shape[0]
                 rate = (iteration - first_iter) / max(time.time() - t_start,
@@ -338,14 +404,17 @@ def training(args, device, init_params=None, on_step=None, on_event=None):
                 tb.scalars(iteration, log, n_now)
 
             if iteration in args.test_iterations:
-                final = iteration == args.iterations
-                results = complete_eval(iteration, args, scene, state,
-                                        sh_degree, eval_render, is_final=final,
-                                        save_raydrop_data=final,
-                                        eval_render360=eval_render360)
-                event(iteration, "eval", results)
+                if lead:
+                    final = iteration == args.iterations
+                    results = complete_eval(iteration, args, scene, state,
+                                            sh_degree, eval_render,
+                                            is_final=final,
+                                            save_raydrop_data=final,
+                                            eval_render360=eval_render360)
+                    event(iteration, "eval", results)
+                sync()
 
-            if iteration % args.vis_step == 0 or iteration == 1:
+            if lead and (iteration % args.vis_step == 0 or iteration == 1):
                 pkg = eval_render(state.params, state.aux.alive, state.prior,
                                   camera_to_batch(cam, device), sh_degree)
                 imgs = [visualize_depth(pkg.depth.cpu().numpy(),
@@ -369,13 +438,16 @@ def training(args, device, init_params=None, on_step=None, on_event=None):
                 event(iteration, "upscale")
 
             if "checkpoint" in events:
-                print(f"\n[ITER {iteration}] Saving Checkpoint", flush=True)
-                path = checkpoint_path(args.model_path, iteration)
-                t0 = time.perf_counter()
-                save_checkpoint(path, state, iteration)
-                event(iteration, "checkpoint", dict(
-                    path=path, seconds=time.perf_counter() - t0,
-                    bytes=os.path.getsize(path)))
+                if lead:
+                    print(f"\n[ITER {iteration}] Saving Checkpoint",
+                          flush=True)
+                    path = checkpoint_path(args.model_path, iteration)
+                    t0 = time.perf_counter()
+                    save_checkpoint(path, state, iteration)
+                    event(iteration, "checkpoint", dict(
+                        path=path, seconds=time.perf_counter() - t0,
+                        bytes=os.path.getsize(path)))
+                sync()
 
             vis_mgr.checkout(iteration)
     finally:
@@ -383,7 +455,8 @@ def training(args, device, init_params=None, on_step=None, on_event=None):
 
     if prof is not None:
         prof.stop()
-    tb.close()
+    if tb is not None:
+        tb.close()
     return state, scene, [float(x) for x in losses]
 
 
@@ -454,15 +527,16 @@ def parse_cli(argv=None):
     return known, args
 
 
-def prepare_run(args):
+def prepare_run(args, clean=True):
     """The run directory and the settings the root train.py derives
-    before training (:489-531): an existing ``model_path`` is removed
-    unless under ``--test_only`` or ``--start_checkpoint``;
+    before training (:489-531): unless ``clean`` is False (the ranks of
+    a data-parallel run but rank 0), an existing ``model_path`` is
+    removed unless under ``--test_only`` or ``--start_checkpoint``;
     ``--test_only``'s settings; ``--debug_cuda`` keeps the last of
     ``resolution_scales`` (the loaders also stop after 16 frames);
     ``exhaust_test`` adds an eval every ``test_interval``."""
     from gslidar_tpu_torch.config import Config
-    if (os.path.exists(args.model_path) and not args.test_only
+    if (clean and os.path.exists(args.model_path) and not args.test_only
             and args.start_checkpoint is None):
         shutil.rmtree(args.model_path)
     os.makedirs(args.model_path, exist_ok=True)
@@ -487,31 +561,50 @@ def main(argv=None):
         raise SystemExit("no CUDA device: pass --device cpu to train with "
                          "the plain PyTorch compositors")
     torch.backends.cuda.matmul.allow_tf32 = False
+    group = None
+    if args.get("data_parallel", False):
+        from gslidar_tpu_torch.parallel.shard import rank_device
+        device = rank_device(device)
+        group = init_group(device)
+    lead = group is None or group.rank == 0
 
-    prepare_run(args)
-    with (contextlib.nullcontext() if known.show_log
-          else log_to(os.path.join(args.model_path, "log.txt"))):
+    if lead:
+        prepare_run(args)
+    if group is not None:
+        group.barrier()
+        if not lead:
+            prepare_run(args, clean=False)
+    with (log_to(os.path.join(args.model_path, "log.txt"))
+          if lead and not known.show_log else contextlib.nullcontext()):
         print("Optimizing " + args.model_path)
-        with open(os.path.join(args.model_path, "setting.txt"), "w") as f:
-            f.write("------------------ start ------------------\n")
-            for k, v in args.items():
-                f.write(f"{k} : {v}\n")
-            f.write("------------------- end -------------------")
-        rd = os.path.join(args.model_path, "ray_drop_datasets")
-        if os.path.exists(rd) and not args.test_only:
-            shutil.rmtree(rd)
+        if lead:
+            with open(os.path.join(args.model_path, "setting.txt"),
+                      "w") as f:
+                f.write("------------------ start ------------------\n")
+                for k, v in args.items():
+                    f.write(f"{k} : {v}\n")
+                f.write("------------------- end -------------------")
+            rd = os.path.join(args.model_path, "ray_drop_datasets")
+            if os.path.exists(rd) and not args.test_only:
+                shutil.rmtree(rd)
+        if group is not None:
+            group.barrier()
         seed_everything(args.seed)
-        state, _, losses = training(args, device)
+        state, _, losses = training(args, device, group=group)
         if losses:
             print(f"trained {len(losses)} steps to "
                   f"{state.params['xyz'].shape[0]} gaussians: loss "
                   f"{losses[0]:.5f} -> {losses[-1]:.5f}")
         print("\nTraining complete.", flush=True)
-        if not known.skip_refine:
+        if lead and not known.skip_refine:
             if not args.test_only:
                 refine(args, device)
             refine_test(args, device)
             print("\nRefine complete.", flush=True)
+    if group is not None:
+        import torch.distributed as dist
+        group.barrier()
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -14,6 +14,9 @@ smoke test refuses to run without a card.
   with a U-Net whose refine.npz gslidar_tpu reads and scores it, logging
   to log.txt; ``--test_only`` and ``--skip_refine`` do what the root
   train.py's do;
+* the parallel layer (``parallel.{comm,shard,pano_shard}``,
+  ``raster.oracle``) imports and runs a data-parallel step and a
+  gaussian-sharded render over its loopback the same way;
 * ``python3 chip_smoke.py`` with CUDA hidden exits non-zero with a clear
   message and prints no result line.
 """
@@ -246,6 +249,24 @@ def test_train_cli_test_only_and_skip_refine_without_jax(trained_run):
     _, log = _run_train_cli(run, "--test_only", "--skip_refine")
     assert "[ITER 12] eval test" in log and "[refine]" not in log
     assert not (run / "eval" / "test_refine_render" / "metrics.json").exists()
+
+
+def test_parallel_layer_runs_without_jax():
+    """The parallel modules import, and a data-parallel step and a
+    gaussian-sharded render run over the loopback, where ``import jax``
+    and ``import gslidar_tpu`` fail."""
+    code = (BLOCK_JAX + "import torch; torch.set_num_threads(2); "
+            "import gslidar_tpu_torch.parallel.comm, "
+            "gslidar_tpu_torch.parallel.pano_shard, "
+            "gslidar_tpu_torch.raster.oracle; "
+            "from gslidar_tpu_torch.parallel.shard import dryrun_multichip; "
+            "dryrun_multichip(2, 'cpu', loopback=True); "
+            + NONE_LOADED + "print('NO_JAX_OK')")
+    r = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "gshard_dropped=0 ok (loopback)" in r.stdout
+    assert "NO_JAX_OK" in r.stdout
 
 
 def test_chip_smoke_fails_without_a_card():
