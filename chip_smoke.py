@@ -181,7 +181,37 @@ failing phase raises:
    and instances per slice; each render's last slice's forward (by the
    seam) against its plain version; each slice's stages and the unsliced
    renders timed (CUDA events, median of 5);
-14. the result: the card's nvidia-smi line, one JSON line of the kernels
+14. KITTI-360 from its raw tree (``data/kitti360_tree.py`` at 120,000
+   returns per sweep, ``data/preprocess/kitti360_to_gs``, ``data/
+   kitti360.py``): (c) kitti360_nvs_10750 at full width (51 sweeps, 6.1M
+   points, the 3,000,000 gaussians of ``create_from_pcd``) through
+   ``training`` for 48 steps (``K10750_RUN``: only the cadence and two
+   thresholds it forces overridden, see there), grown by densify to
+   >= 9,500,000 alive gaussians toward the config's 10,000,000 cap: the
+   events are exactly ``schedule``'s, each step launches the forward and
+   the backward kernel once with a finite loss and gradients, both
+   kernels are held against their plain versions at phase 7's bars on
+   step 7 (3M gaussians, 66x515) and on the first step at the cap; the
+   checkpoint at the cap reloads bit for bit, the final eval (4 test + 47
+   train pairs) writes finite metrics, a 360-degree render at the cap
+   launches the forward once; (a) on 2,048 of the scene's gaussians in a
+   test camera's 66x515 view, the gradients for xyz, scaling, rotation,
+   opacity and SH through ``rasterize`` (both CUDA compositors) against
+   the dense oracle's autograd (``raster/oracle.py``) on the card, within
+   ``ORACLE_RTOL`` of each tensor's largest magnitude (tests/
+   test_raster.py's bar), the first check of the backward kernel that
+   shares none of its tiling; (b) kitti360_nvs_1908 (64 sweeps, 7.7M
+   points, num_pts 1,000,000) through ``kitti360_to_gs`` and ``python -m
+   gslidar_tpu_torch.train`` in subprocesses (``K1908_RUN``: cadence and
+   refine epochs cut), to its final eval's metrics.json, refine and
+   refine_test; (d) ``python -m gslidar_tpu_torch.scripts.
+   compare_2dgs_3dgs`` on the card, its two PNGs. It prints the seconds of
+   the trees, the converter, the loader, the scene, create_from_pcd and
+   the CLI, the step time at 3M and at the cap (CUDA events, median), each
+   densify's counts and time, the checkpoint's bytes and its save and
+   load seconds, the eval's seconds, the 360-degree render's time, the
+   instances per step and the peak memory by stage;
+15. the result: the card's nvidia-smi line, one JSON line of the kernels
    (kernels 1-2 with their launches on each path), and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -478,6 +508,99 @@ def run_bwd_pair(rows, tile_starts, fwd, cts, params, settings, C, S,
         rows_differing=int((kern != plain).any(1).sum()),
         rows=rows.shape[0], finite=finite, repeats_bitwise=repeats,
         raw_max_abs_err=float((kern - plain).abs().max()))
+
+
+def check_step_kernels(phase, label, bwd_args, seed):
+    """A training step's forward (with checkpoints) and backward kernels
+    against their plain versions at phase 7's bars, on the arguments
+    ``bwd_args`` its backward was called with; the launches of this
+    comparison are not the run's. Returns (the kinds that failed, the
+    forward's and the backward's largest absolute errors)."""
+    from gslidar_tpu_torch.raster.composite_bwd import composite_backward
+    from gslidar_tpu_torch.raster.composite_fwd import composite_forward
+    saved = (composite_forward.launches, composite_backward.launches)
+    rows, starts, fwd, _, params8, st, C, S, ckpt = bwd_args
+    ok_f, summ_f, _, _ = run_pair(rows, starts, params8, st, C, S)
+    ok_b, summ_b = run_bwd_pair(rows, starts, fwd,
+                                random_cotangents(st, C, S, seed,
+                                                  rows.device),
+                                params8, st, C, S, ckpt)
+    composite_forward.launches, composite_backward.launches = saved
+    failed = []
+    for kind, ok, summ in (("forward", ok_f, summ_f),
+                           ("backward", ok_b, summ_b)):
+        say(phase, f"{kind} kernel vs plain {label} ({rows.shape[0]} "
+                   f"instances): {'ok' if ok else 'FAIL'} "
+                   f"{json.dumps(summ)}")
+        if not ok:
+            failed.append(kind)
+    return failed, summ_f["raw_max_abs_err"], summ_b["raw_max_abs_err"]
+
+
+def cuda_timed(fn, out_ms):
+    """``fn`` timed by CUDA events: each call appends its ms to
+    ``out_ms``."""
+    import torch
+
+    def run(*a, **k):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = fn(*a, **k)
+        ev[1].record()
+        torch.cuda.synchronize()
+        out_ms.append(ev[0].elapsed_time(ev[1]))
+        return out
+    return run
+
+
+class Stages:
+    """Host time and peak device memory by stage: ``close(name)`` ends
+    the stage since the last close (or ``start``) as ``name``, keeps the
+    largest peak over its occurrences in ``peak`` and returns its
+    seconds."""
+
+    def __init__(self):
+        self.peak = {}
+        self.start()
+
+    def start(self):
+        import torch
+        torch.cuda.reset_peak_memory_stats()
+        self.t = time.perf_counter()
+
+    def close(self, name):
+        import torch
+        torch.cuda.synchronize()
+        gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        self.peak[name] = max(self.peak.get(name, 0.0), gib)
+        seconds = time.perf_counter() - self.t
+        self.start()
+        return seconds
+
+
+def states_equal(a, b):
+    """Two TrainStates equal bit for bit: params, Adam moments and count,
+    aux statistics, the ray-drop prior and its Adam state."""
+    import torch
+    return (a.opt.count == b.opt.count and a.prior_opt[2] == b.prior_opt[2]
+            and all(x.dtype == y.dtype and torch.equal(x, y) for x, y in [
+                *((a.params[k], b.params[k]) for k in b.params),
+                *((a.opt.mu[k], b.opt.mu[k]) for k in b.params),
+                *((a.opt.nu[k], b.opt.nu[k]) for k in b.params),
+                *((getattr(a.aux, f), getattr(b.aux, f)) for f in (
+                    "alive", "max_radii2D", "xyz_gradient_accum",
+                    "xyz_gradient_accum_abs", "t_gradient_accum", "denom")),
+                (a.prior, b.prior), (a.prior_opt[0], b.prior_opt[0]),
+                (a.prior_opt[1], b.prior_opt[1])]))
+
+
+def floats(d):
+    """Every float in a nested dict (a metrics.json)."""
+    for v in d.values():
+        if isinstance(v, dict):
+            yield from floats(v)
+        elif isinstance(v, float):
+            yield v
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1138,42 +1261,19 @@ def phase_train_densify(device, init_params, smi):
             capture["bwd"] = a
         return bwd_orig(*a)
 
-    def make_timed(*a, **k):
-        fn = make_orig(*a, **k)
-
-        def timed(*aa, **kk):                 # the densify by CUDA events
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-            out = fn(*aa, **kk)
-            ev[1].record()
-            torch.cuda.synchronize()
-            cuda_ms.append(ev[0].elapsed_time(ev[1]))
-            return out
-        return timed
+    def make_timed(*a, **k):                  # the densify by CUDA events
+        return cuda_timed(make_orig(*a, **k), cuda_ms)
 
     def mark():
         torch.cuda.synchronize()
         rec["t"] = time.perf_counter()
 
     def check_kernels(iteration):
-        """The step's forward (with checkpoints) and backward kernels
-        against their plain versions, at phase 7's bars; the launches of
-        this comparison are not the run's."""
-        saved = (composite_forward.launches, composite_backward.launches)
-        rows, starts, fwd, _, params8, st, C, S, ckpt = capture.pop("bwd")
-        ok_f, summ_f, _, _ = run_pair(rows, starts, params8, st, C, S)
-        ok_b, summ_b = run_bwd_pair(rows, starts, fwd,
-                                    random_cotangents(st, C, S, SEED + 19,
-                                                      device),
-                                    params8, st, C, S, ckpt)
-        composite_forward.launches, composite_backward.launches = saved
-        for kind, ok, summ in (("forward", ok_f, summ_f),
-                               ("backward", ok_b, summ_b)):
-            say(10, f"{kind} kernel vs plain on step {iteration}, the first "
-                    f"after the densify ({rows.shape[0]} instances): "
-                    f"{'ok' if ok else 'FAIL'} {json.dumps(summ)}")
-            if not ok:
-                bad.append(f"{kind} kernel vs plain at {iteration}")
+        failed, _, _ = check_step_kernels(
+            10, f"on step {iteration}, the first after the densify",
+            capture.pop("bwd"), SEED + 19)
+        bad.extend(f"{kind} kernel vs plain at {iteration}"
+                   for kind in failed)
         rec["kernels_checked"] = iteration
 
     def on_step(iteration, state, loss, log, grads):
@@ -1292,19 +1392,7 @@ def phase_train_densify(device, init_params, smi):
     loaded, it12 = load_train_state(path12, device)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    saved = held[12]
-    same = (it12 == 12 and loaded.opt.count == saved.opt.count
-            and loaded.prior_opt[2] == saved.prior_opt[2]
-            and all(a.dtype == b.dtype and torch.equal(a, b) for a, b in [
-                *((loaded.params[k], saved.params[k]) for k in saved.params),
-                *((loaded.opt.mu[k], saved.opt.mu[k]) for k in saved.params),
-                *((loaded.opt.nu[k], saved.opt.nu[k]) for k in saved.params),
-                *((getattr(loaded.aux, f), getattr(saved.aux, f)) for f in (
-                    "alive", "max_radii2D", "xyz_gradient_accum",
-                    "xyz_gradient_accum_abs", "t_gradient_accum", "denom")),
-                (loaded.prior, saved.prior),
-                (loaded.prior_opt[0], saved.prior_opt[0]),
-                (loaded.prior_opt[1], saved.prior_opt[1])]))
+    same = it12 == 12 and states_equal(loaded, held[12])
     del loaded, held
     resume = train_args(run, RESUME_ITERATIONS, DENSIFY_RUN)
     Config.update(resume, "start_checkpoint", path12)
@@ -1729,7 +1817,7 @@ def phase_opv2v(smi, device, tree_kw=None, overrides=()):
     random.seed(SEED)               # the loader's pair shuffle
     np.random.seed(SEED)            # and its point colors
     rec = dict(n={}, events={}, step_ms={}, densify={}, ckpt={}, eval_s={},
-               shift={}, pairs={}, peak={}, moved={})
+               shift={}, pairs={}, moved={})
     bad, cuda_ms, held, capture = [], [], {}, dict(armed=False)
     client, paused = {}, threading.Event()
     saved_fns = (T.build_scene, T.create_from_pcd, G.mean_sq_dist_knn3,
@@ -1760,54 +1848,24 @@ def phase_opv2v(smi, device, tree_kw=None, overrides=()):
             return fn(state, cam, iteration, sh, time_shift, *aa, **kk)
         return step
 
-    def make_densify(*a, **k):
-        fn = saved_fns[4](*a, **k)
-
-        def densify(*aa, **kk):                # the densify by CUDA events
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-            out = fn(*aa, **kk)
-            ev[1].record()
-            torch.cuda.synchronize()
-            cuda_ms.append(ev[0].elapsed_time(ev[1]))
-            return out
-        return densify
+    def make_densify(*a, **k):                 # the densify by CUDA events
+        return cuda_timed(saved_fns[4](*a, **k), cuda_ms)
 
     def bwd_keep(*a):
         if capture["armed"]:
             capture["bwd"] = a
         return saved_fns[5](*a)
 
-    def stage(name):
-        """Close the stage since the last mark as ``name``: its peak
-        memory (the largest over its occurrences) and its host time."""
-        torch.cuda.synchronize()
-        gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        rec["peak"][name] = max(rec["peak"].get(name, 0.0), gib)
-        torch.cuda.reset_peak_memory_stats()
-        seconds = time.perf_counter() - rec.get("t", time.perf_counter())
-        rec["t"] = time.perf_counter()
-        return seconds
+    stages = Stages()
+    stage = stages.close
 
     def check_kernels(iteration):
-        saved = (composite_forward.launches, composite_backward.launches)
-        rows, starts, fwd, _, params8, st, C, S, ckpt = capture.pop("bwd")
-        ok_f, summ_f, _, _ = run_pair(rows, starts, params8, st, C, S)
-        ok_b, summ_b = run_bwd_pair(rows, starts, fwd,
-                                    random_cotangents(st, C, S, SEED + 23,
-                                                      rows.device),
-                                    params8, st, C, S, ckpt)
-        composite_forward.launches, composite_backward.launches = saved
-        for kind, ok, summ in (("forward", ok_f, summ_f),
-                               ("backward", ok_b, summ_b)):
-            say(12, f"{kind} kernel vs plain on dynamic step {iteration}, "
-                    f"the first after a densify ({rows.shape[0]} "
-                    f"instances): {'ok' if ok else 'FAIL'} "
-                    f"{json.dumps(summ)}")
-            if not ok:
-                bad.append(f"{kind} kernel vs plain at {iteration}")
-        rec["checked"] = (iteration, summ_f["raw_max_abs_err"],
-                          summ_b["raw_max_abs_err"])
+        failed, err_f, err_b = check_step_kernels(
+            12, f"on dynamic step {iteration}, the first after a densify",
+            capture.pop("bwd"), SEED + 23)
+        bad.extend(f"{kind} kernel vs plain at {iteration}"
+                   for kind in failed)
+        rec["checked"] = (iteration, err_f, err_b)
 
     def on_step(iteration, state, loss, log, grads):
         rec["step_ms"][iteration] = stage("step") * 1e3
@@ -1857,8 +1915,8 @@ def phase_opv2v(smi, device, tree_kw=None, overrides=()):
         composite_forward.launches = 0
         composite_backward.launches = 0
         steps = StepLaunches()
-        torch.cuda.reset_peak_memory_stats()
-        rec["t"] = t0 = time.perf_counter()
+        stages.start()
+        t0 = time.perf_counter()
         state, scene, losses = T.training(args, device, on_step=on_step,
                                           on_event=on_event)
         torch.cuda.synchronize()
@@ -1926,19 +1984,8 @@ def phase_opv2v(smi, device, tree_kw=None, overrides=()):
     loaded, it12 = load_train_state(path12, device)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    saved = held.pop(12)
-    same = (it12 == 12 and loaded.opt.count == saved.opt.count
-            and all(a.dtype == b.dtype and torch.equal(a, b) for a, b in [
-                *((loaded.params[k], saved.params[k]) for k in saved.params),
-                *((loaded.opt.mu[k], saved.opt.mu[k]) for k in saved.params),
-                *((loaded.opt.nu[k], saved.opt.nu[k]) for k in saved.params),
-                *((getattr(loaded.aux, f), getattr(saved.aux, f)) for f in (
-                    "alive", "max_radii2D", "xyz_gradient_accum",
-                    "xyz_gradient_accum_abs", "t_gradient_accum", "denom")),
-                (loaded.prior, saved.prior),
-                (loaded.prior_opt[0], saved.prior_opt[0]),
-                (loaded.prior_opt[1], saved.prior_opt[1])]))
-    del loaded, saved, held
+    same = it12 == 12 and states_equal(loaded, held.pop(12))
+    del loaded, held
 
     # the spatial 3-NN against its brute force on a 100k subset of the cloud
     sub = torch.as_tensor(scene.scene_info.point_cloud[0][::30],
@@ -1955,16 +2002,10 @@ def phase_opv2v(smi, device, tree_kw=None, overrides=()):
             f"{time.perf_counter() - t1:.2f} s, equal bit for bit: "
             f"{knn_same}")
 
-    def numbers(d):
-        for v in d.values():
-            if isinstance(v, dict):
-                yield from numbers(v)
-            elif isinstance(v, float):
-                yield v
     eval_s, results = rec["eval_s"].get(OPV2V_ITERATIONS, (0.0, {}))
     finite = bool(results) and all(
         math.isfinite(x) for split in results.values()
-        for x in numbers(split))
+        for x in floats(split))
     say(12, "checkpoints on " + smi + ": " + ", ".join(
         f"{it}: {c['bytes']} bytes saved in {c['seconds']:.2f} s"
         for it, c in sorted(rec["ckpt"].items()))
@@ -1979,7 +2020,7 @@ def phase_opv2v(smi, device, tree_kw=None, overrides=()):
                 "paused", "full", "preview", "full again", "resumed",
                 "stats", "error")})
             + " | peak memory by stage (GiB) "
-            + json.dumps({k: round(v, 2) for k, v in rec["peak"].items()}))
+            + json.dumps({k: round(v, 2) for k, v in stages.peak.items()}))
     shutil.rmtree(root, ignore_errors=True)
     full, prev, again = (client.get(k, {}) for k in (
         "full", "preview", "full again"))
@@ -2562,6 +2603,499 @@ def phase_sharded_renders(args, params, alive, cam, group, smi):
     return max(errs), all_launches, med
 
 
+# --------------------------------------------------------------- phase 14
+# KITTI-360 from its raw tree: data/kitti360_tree.py at an HDL-64E sweep's
+# density (120,000 returns), data/preprocess/kitti360_to_gs.py, then the
+# loader (data/kitti360.py) of each config the repo ships for it
+KITTI_POINTS = 120_000
+# kitti360_nvs_10750: its widths, lambdas, num_pts (3,000,000) and
+# densify_until_num_points (10,000,000) as configured; cut: the cadence
+# (statistics from the first step, densify at 20 and 40 while under the
+# cap, resets at 12, 24 and 36, the coarse-to-fine steps at 2 and 4, so
+# that every step from 5 on is at the full 66x515, the flip at 45, the
+# checkpoint and the final eval at 48) and two thresholds the cut cadence
+# forces. A densify cuts the gaussians no view saw since the last one,
+# and one view sees a small share of this dynamic model (its half of the
+# panorama, and the gaussians whose temporal marginal, of scale
+# sqrt(0.006) over the 51 frames, reaches its time): 12, 16 and 20 views
+# left 16 %, 12 % and 9 % of the gaussians unseen on an H100, so the
+# densifies are 20 views apart.
+# thresh_opa_prune 0.1 is above the 0.05 init and reset opacity (phase
+# 12's finding: a densify so early would prune every gaussian); and
+# densify_grad_threshold 1e-4, above which so few steps leave too few
+# gaussians to grow the model to its cap, goes to 0: every gaussian seen
+# is cloned or split
+K10750_ITERATIONS = 48
+K10750_RUN = ["densify_from_iter=0", "densification_interval=20",
+              "densify_until_iter=44", "opacity_reset_interval=12",
+              "scale_increase_interval=2", "thresh_opa_prune=0.005",
+              "densify_grad_threshold=0.0"]
+K10750_CAP_MIN = 9_500_000        # alive gaussians the run must reach
+K10750_CHECK_3M = 7               # a full-width step before the first densify
+# kitti360_nvs_1908 through the CLI: num_pts 1,000,000 and every width as
+# configured; cut: the cadence (a reset at 6, a densify at 8, the
+# checkpoint and the final eval at 12) and the refine epochs
+K1908_RUN = ["iterations=12", "densify_from_iter=4",
+             "densification_interval=4", "densify_until_iter=10",
+             "opacity_reset_interval=6", "test_iterations=[12]",
+             "checkpoint_iterations=[12]", "refine_epochs=60"]
+ORACLE_GAUSSIANS = 2048
+ORACLE_RTOL = 5e-3                # tests/test_raster.py's gradient bar
+
+
+def oracle_gradients(args, params, cam, device, n, seed):
+    """(a) The compositors' gradients against the dense oracle's autograd
+    on the card: ``n`` gaussians of ``params`` (seeded, among those the
+    camera ``cam``'s 66x515 half view sees), at their own positions,
+    scales, rotations and SH, with seeded opacities in [0.2, 0.95] and
+    features, through ``rasterize`` (both CUDA compositors) and through
+    ``raster.oracle.rasterize_dense``; the loss is tests/test_raster.py's
+    against the camera's range panorama. Returns {tensor: the largest
+    |a - b| / max |b|}, the instances, and the oracle's seconds and peak
+    memory."""
+    import numpy as np
+    import torch
+    import gslidar_tpu_torch.models.gaussians as G
+    from gslidar_tpu_torch.engine.train import camera_to_batch
+    from gslidar_tpu_torch.raster.oracle import rasterize_dense
+    from gslidar_tpu_torch.raster.preprocess import preprocess
+    from gslidar_tpu_torch.raster.rasterize import rasterize
+    from gslidar_tpu_torch.render import raster_settings
+    st = raster_settings(args, cam.height, cam.width)
+    batch = camera_to_batch(cam, device)
+    sf = float(args.scale_factor)
+    with torch.no_grad():
+        xyz, scales = params["xyz"], G.get_scaling(params)
+        rot, shs = params["rotation"], G.get_features(params)
+        ones = torch.ones(xyz.shape[0], device=device)
+        prep = preprocess(xyz, scales, rot, ones, shs,
+                          torch.ones_like(ones, dtype=torch.bool),
+                          batch.viewmat, batch.campos, 3, sf, st)
+        seen = torch.nonzero(prep.valid)[:, 0]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    pick = seen[torch.randperm(seen.shape[0], generator=g)[:n].to(device)]
+    rng = np.random.default_rng(seed)
+    leaves = [x[pick].detach().clone().requires_grad_()
+              for x in (xyz, scales, rot)]
+    leaves.append(torch.as_tensor(rng.uniform(0.2, 0.95, n).astype(
+        np.float32), device=device).requires_grad_())
+    leaves.append(shs[pick].detach().clone().requires_grad_())
+    feats = torch.as_tensor(rng.normal(size=(n, 4)).astype(np.float32),
+                            device=device)
+    mask = torch.ones(n, dtype=torch.bool, device=device)
+    bg = torch.tensor([0.0, 0.0, 0.0, 1.0], device=device)
+    target = batch.pts_depth[0]
+
+    def loss_of(out, dense):
+        get = (lambda k: out[k]) if dense else (lambda k: getattr(out, k))
+        depth = get("depth")
+        return ((depth[0] - target).abs().mean() + (get("color") ** 2).mean()
+                + 0.1 * get("alpha").mean() + 0.01 * depth[2].mean())
+
+    tiled = rasterize(*leaves, feats, mask, batch.viewmat, batch.campos, bg,
+                      3, sf, st)
+    g_tiled = torch.autograd.grad(loss_of(tiled, False), leaves)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dense = rasterize_dense(*leaves, feats, mask, batch.viewmat,
+                            batch.campos, bg, 3, sf, st)
+    g_dense = torch.autograd.grad(loss_of(dense, True), leaves)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    worst = {}
+    for name, a, b in zip(("xyz", "scaling", "rotation", "opacity", "sh"),
+                          g_tiled, g_dense):
+        scale = float(b.abs().max())
+        worst[name] = (float((a - b).abs().max()) / scale if scale > 0
+                       else float("inf"))
+    return worst, tiled.num_pairs, seconds, peak
+
+
+def phase_kitti360(smi, device, points=KITTI_POINTS, overrides=(),
+                   cap_min=K10750_CAP_MIN, oracle_n=ORACLE_GAUSSIANS,
+                   cli_overrides=()):
+    """KITTI-360 from its raw tree: (c) kitti360_nvs_10750 at full width,
+    in process through ``training`` (the launch counts set to 0 just
+    before it and read just after), grown by densify to >= ``cap_min``
+    gaussians; (a) the compositors' gradients against the dense oracle on
+    the card, on gaussians of that scene; (b) kitti360_nvs_1908 through
+    the converter and the training CLI in subprocesses, to metrics.json
+    and its refinement; (d) the 2DGS / 3DGS comparison script on the
+    card. ``points``, ``overrides``, ``cap_min``, ``oracle_n`` and
+    ``cli_overrides`` shrink it for a rehearsal on the CPU. Returns the
+    kernels' largest absolute errors against their plain versions (on a
+    step at 3M gaussians and one at the cap) and the run's launches."""
+    import contextlib
+    import math
+    import random
+    import shutil
+    import sys
+    import numpy as np
+    import torch
+    import gslidar_tpu_torch.data.kitti360 as K
+    import gslidar_tpu_torch.raster.composite_op as co
+    import gslidar_tpu_torch.train as T
+    from gslidar_tpu_torch.data.kitti360_tree import write_kitti360_tree
+    from gslidar_tpu_torch.data.preprocess import kitti360_to_gs
+    from gslidar_tpu_torch.engine.checkpoint import load_train_state
+    from gslidar_tpu_torch.engine.evaluate import make_eval_render360
+    from gslidar_tpu_torch.engine.train import camera_to_batch
+    from gslidar_tpu_torch.raster.composite_bwd import composite_backward
+    from gslidar_tpu_torch.raster.composite_fwd import composite_forward
+    from gslidar_tpu_torch.render import gaussian_config, raster_settings
+    from gslidar_tpu_torch.scripts import compare_2dgs_3dgs
+
+    root = os.path.join(REPO, "build", "chip_smoke_kitti360")
+    shutil.rmtree(root, ignore_errors=True)
+    phase_t0 = time.perf_counter()
+
+    # ------------------------------------------------ (c) 10750, full width
+    data, run = os.path.join(root, "data10750"), os.path.join(root, "run")
+    s_frame, e_frame, _ = K.SEQ_TABLE["10750"]
+    t0 = time.perf_counter()
+    kitti, n_written = write_kitti360_tree(data, s_frame, e_frame, points,
+                                           skip_poses=False)
+    tree_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(None):
+        kitti360_to_gs.main("10750", kitti, data)
+    convert_s = time.perf_counter() - t0
+    args = T.load_args(os.path.join(REPO, "configs",
+                                    "kitti360_nvs_10750.yaml"),
+                       os.path.join(REPO, "configs", "base.yaml"),
+                       [f"source_path={data}", f"model_path={run}",
+                        f"iterations={K10750_ITERATIONS}", f"seed={SEED}",
+                        *K10750_RUN, *overrides])
+    random.seed(SEED)
+    np.random.seed(SEED)            # the loader's subsample and colors
+    rec = dict(n={}, events={}, densify={}, ckpt={}, eval_s={}, pairs={},
+               checked={})
+    bad, cuda_ms, step_ms, held = [], [], [], {}
+    capture = dict(armed=False)
+    saved_fns = (K.read_kitti360_info, T.build_scene, T.create_from_pcd,
+                 T.make_train_step, T.make_densify_fn, co.composite_backward)
+
+    def timed(name, fn):
+        def run_timed(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            rec[name] = time.perf_counter() - t
+            return out
+        return run_timed
+
+    def create_keep(*a, **k):
+        params, aux = timed("create_s", saved_fns[2])(*a, **k)
+        rec["init"] = {key: v.clone() for key, v in params.items()}
+        stage("create_from_pcd")
+        return params, aux
+
+    def make_step(*a, **k):                    # the step by CUDA events
+        return cuda_timed(saved_fns[3](*a, **k), step_ms)
+
+    def make_densify(*a, **k):                 # the densify by CUDA events
+        return cuda_timed(saved_fns[4](*a, **k), cuda_ms)
+
+    def bwd_keep(*a):
+        if capture["armed"]:
+            capture["bwd"] = a
+        return saved_fns[5](*a)
+
+    stages = Stages()
+    stage = stages.close
+
+    def check_kernels(iteration, n):
+        st = capture["bwd"][5]
+        failed, err_f, err_b = check_step_kernels(
+            14, f"on kitti360_nvs_10750 step {iteration}, {n} gaussians at "
+                f"{st.height}x{st.width}", capture.pop("bwd"), SEED + 29)
+        bad.extend(f"{kind} kernel vs plain at {iteration}"
+                   for kind in failed)
+        rec["checked"][iteration] = (n, err_f, err_b)
+
+    def on_step(iteration, state, loss, log, grads):
+        stage("step")
+        steps.step()
+        n = state.params["xyz"].shape[0]
+        rec["n"][iteration] = n
+        rec["pairs"][iteration] = log["num_pairs"]
+        rec["events"][iteration] = []
+        if not (math.isfinite(float(loss)) and all(
+                bool(torch.isfinite(g).all()) for g in grads.values())):
+            bad.append(f"non-finite loss or gradient at {iteration}")
+        if capture["armed"]:
+            capture["armed"] = False
+            check_kernels(iteration, n)
+        capture["armed"] = iteration + 1 == K10750_CHECK_3M
+        stage("hook")
+
+    def on_event(iteration, name, state, info):
+        seconds = stage(name)
+        steps.skip()
+        rec["events"][iteration].append(name)
+        if name == "densify":
+            rec["densify"][iteration] = dict(info, cuda_ms=cuda_ms[-1])
+            capture["armed"] = info["after"] >= cap_min
+        elif name == "checkpoint":
+            rec["ckpt"][iteration] = info
+            held[iteration] = state
+        elif name == "eval":
+            rec["eval_s"][iteration] = (seconds, info)
+        stage("hook")
+
+    torch.cuda.empty_cache()
+    (K.read_kitti360_info, T.build_scene, T.create_from_pcd,
+     T.make_train_step, T.make_densify_fn, co.composite_backward) = (
+        timed("loader_s", saved_fns[0]), timed("scene_s", saved_fns[1]),
+        create_keep, make_step, make_densify, bwd_keep)
+    try:
+        composite_forward.launches = 0
+        composite_backward.launches = 0
+        steps = StepLaunches()
+        stages.start()
+        t0 = time.perf_counter()
+        state, scene, losses = T.training(args, device, on_step=on_step,
+                                          on_event=on_event)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = (composite_forward.launches, composite_backward.launches)
+    finally:
+        (K.read_kitti360_info, T.build_scene, T.create_from_pcd,
+         T.make_train_step, T.make_densify_fn,
+         co.composite_backward) = saved_fns
+    per_step = steps.per_step
+    step_ms = dict(enumerate(step_ms, start=1))
+    n_points = len(scene.scene_info.point_cloud[0])
+    n_test = len(scene.scene_info.test_cameras) // 2
+    n_train = len(scene.get_train_cameras()) // 2
+    h, w = args.hw
+    n_final = state.params["xyz"].shape[0]
+
+    nts, wrong = bool(args.no_time_split), []
+    for it in range(1, K10750_ITERATIONS + 1):
+        want = T.schedule(args, it, rec["n"][it], nts)
+        got = [e for e in rec["events"][it] if e not in ("vis", "eval")]
+        if got != want:
+            wrong.append((it, got, want))
+        nts = nts and "flip" not in got
+    fired = {it: ev for it, ev in rec["events"].items() if ev}
+    say(14, f"(c) kitti360_nvs_10750 on {smi}: raw tree of {n_written} "
+            f"points ({e_frame + 1 - s_frame} sweeps of {points}) written "
+            f"in {tree_s:.1f} s, converted in {convert_s:.2f} s; the loader "
+            f"kept {n_points} in {rec['loader_s']:.1f} s (scene with its GT "
+            f"panoramas {rec['scene_s']:.1f} s: {n_train} train and "
+            f"{n_test} test pairs, {h}x{w} and coarser); create_from_pcd "
+            f"{rec['create_s']:.1f} s")
+    dens = sorted(rec["densify"])
+    say(14, f"training kitti360_nvs_10750: {len(losses)} steps ("
+            + ", ".join(K10750_RUN) + f") | events {fired} | launches "
+            f"forward {launches[0]}, backward {launches[1]}, per step "
+            f"{per_step} (and {steps.other[0]} forwards of the depth "
+            f"visualizations and the final eval) | gaussians per step "
+            f"{[rec['n'][i] for i in sorted(rec['n'])]} | instances per "
+            f"step {[rec['pairs'][i] for i in sorted(rec['pairs'])]} | loss "
+            f"{[round(x, 5) for x in losses]} | {wall_s:.1f} s with set-up")
+    for it, c in rec["densify"].items():
+        say(14, f"densify at {it}: {c['before']} -> {c['after']} gaussians: "
+                f"never visible -{c['never_visible']}, clones "
+                f"{c['clones']}, splits {c['splits']}, new +{c['new']}, "
+                f"opacity prune -{c['opacity_pruned']}, world-size prune "
+                f"-{c['world_size_pruned']} | {c['cuda_ms']:.3f} ms by CUDA "
+                f"events on {smi}")
+    at_3m = [i for i in step_ms if i > 4 and i < (dens or [99])[0]
+             and rec["n"][i] == n_points]
+    at_cap = [i for i in step_ms if rec["n"][i] >= cap_min
+              and (not dens or i > dens[-1])]
+    say(14, f"step time on {smi} (CUDA events, median): at {n_points} "
+            f"gaussians (steps {at_3m}, {h}x{w}) "
+            f"{_median_ms(step_ms, at_3m):.3f} ms; at the cap "
+            f"(steps {at_cap}, {[rec['n'][i] for i in at_cap][:1]} "
+            f"gaussians) {_median_ms(step_ms, at_cap):.3f} ms; every "
+            f"step {[round(step_ms[i], 2) for i in sorted(step_ms)]}")
+
+    # the checkpoint at the cap reloads bit for bit
+    t0 = time.perf_counter()
+    loaded, it_l = load_train_state(rec["ckpt"][K10750_ITERATIONS]["path"],
+                                    device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    same = it_l == K10750_ITERATIONS and states_equal(
+        loaded, held.pop(K10750_ITERATIONS))
+    del loaded, held
+    stage("checkpoint load")
+
+    # a 360-degree render at the cap (the serving path), CUDA events
+    cfg = gaussian_config(args, no_time_split=False)
+    render360 = make_eval_render360(args, cfg, raster_settings(args, h, w),
+                                    torch.tensor([0.0, 0.0, 0.0, 1.0],
+                                                 device=device))
+    cam = scene.get_test_cameras(1)[0]
+    batch = camera_to_batch(cam, device)
+    saved_l = (composite_forward.launches, composite_backward.launches)
+    render_ms = []
+    for _ in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        pkg = render360(state.params, state.aux.alive, state.prior, batch,
+                        args.sh_degree)
+        ev[1].record()
+        torch.cuda.synchronize()
+        render_ms.append(ev[0].elapsed_time(ev[1]))
+    render_launches = composite_forward.launches - saved_l[0]
+    render_pairs = pkg.num_pairs
+    composite_forward.launches, composite_backward.launches = saved_l
+    stage("render")
+
+    eval_s, results = rec["eval_s"].get(K10750_ITERATIONS, (0.0, {}))
+    finite = bool(results) and all(
+        math.isfinite(x) for split in results.values()
+        for x in floats(split))
+    say(14, f"at the cap ({n_final} gaussians) on {smi}: checkpoints "
+            + ", ".join(f"{it}: {c['bytes']} bytes saved in "
+                        f"{c['seconds']:.2f} s"
+                        for it, c in sorted(rec["ckpt"].items()))
+            + f", loaded in {load_s:.2f} s, every leaf bit for bit as saved: "
+              f"{same} | the final eval ({n_test} test + {n_train} train "
+              f"pairs at {h}x{2 * w}) {eval_s:.2f} s, metrics finite "
+              f"{finite}: " + json.dumps({k: {m: v[m] for m in (
+                  "Ray drop", "Depth")} for k, v in results.items()})
+            + f" | 360-degree render at {h}x{2 * w}: "
+              f"{statistics.median(render_ms[1:]):.3f} ms (median of 3 after "
+              f"one, CUDA events), {render_pairs} instances, "
+              f"{render_launches} forward launches for 4 renders | peak "
+              f"memory by stage (GiB) "
+            + json.dumps({k: round(v, 2) for k, v in stages.peak.items()}))
+    init = rec.pop("init")
+    del state, pkg
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------- (a) gradients vs the oracle
+    saved_l = (composite_forward.launches, composite_backward.launches)
+    worst, pairs_a, oracle_s, oracle_peak = oracle_gradients(
+        args, init, cam, device, oracle_n, SEED + 31)
+    oracle_launches = (composite_forward.launches - saved_l[0],
+                       composite_backward.launches - saved_l[1])
+    composite_forward.launches, composite_backward.launches = saved_l
+    oracle_ok = oracle_launches == (1, 1) and all(
+        v <= ORACLE_RTOL for v in worst.values())
+    say(14, f"(a) CUDA compositors' gradients vs the dense oracle's "
+            f"autograd on {smi}: {oracle_n} gaussians of the 10750 scene "
+            f"in test camera {cam.colmap_id}'s {cam.height}x{cam.width} "
+            f"view ({pairs_a} instances; launches {oracle_launches}), "
+            f"|a - b| / max|b| per tensor "
+            + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()})
+            + f", bar {ORACLE_RTOL}: {'ok' if oracle_ok else 'FAIL'} | the "
+              f"oracle's forward and backward {oracle_s:.1f} s, peak "
+              f"{oracle_peak:.2f} GiB")
+    del init
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- (b) 1908 through the CLI
+    data8, run8 = os.path.join(root, "data1908"), os.path.join(root, "run8")
+    s8, e8, _ = K.SEQ_TABLE["1908"]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    kitti8, n8 = write_kitti360_tree(data8, s8, e8, points,
+                                     skip_poses=False)
+    tree8_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m",
+                        "gslidar_tpu_torch.data.preprocess.kitti360_to_gs",
+                        "--seq", "1908", "--kitti_root", kitti8, "--out",
+                        data8], cwd=REPO, env=env, capture_output=True,
+                       text=True, timeout=300)
+    convert8_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise RuntimeError(f"kitti360_to_gs failed:\n{r.stderr[-3000:]}")
+    cmd = [sys.executable, "-m", "gslidar_tpu_torch.train", "--config",
+           "configs/kitti360_nvs_1908.yaml", f"source_path={data8}",
+           f"model_path={run8}", f"seed={SEED}", "--device", str(device),
+           *K1908_RUN, *cli_overrides]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+                       text=True, timeout=900)
+    cli_s = time.perf_counter() - t0
+    log_path = os.path.join(run8, "log.txt")
+    lines = [""]
+    if os.path.exists(log_path):
+        with open(log_path) as f:
+            lines = f.read().strip().splitlines() or [""]
+    pick = [ln for ln in lines if ln.startswith(("[scene]", "[init]",
+                                                 "trained "))
+            or "] densify:" in ln or ln.startswith(("[ITER 12] eval",
+                                                     "[refine]"))]
+    iters = int(next(a for a in K1908_RUN if a.startswith(
+        "iterations=")).split("=")[1])
+    need = [os.path.join(run8, "eval", f"{split}_{iters}_render",
+                         "metrics.json") for split in ("test", "train")]
+    need += [os.path.join(run8, "ckpt", f"chkpnt{iters}.npz"),
+             os.path.join(run8, "ckpt", "refine.npz"),
+             os.path.join(run8, "eval", "test_refine_render",
+                          "metrics.json")]
+    metrics8 = {}
+    if os.path.exists(need[0]):
+        with open(need[0]) as f:
+            metrics8 = json.load(f)
+    finite8 = bool(metrics8) and all(math.isfinite(x)
+                                     for x in floats(metrics8))
+    say(14, f"(b) kitti360_nvs_1908 on {smi}: raw tree of {n8} points "
+            f"({e8 + 1 - s8} sweeps) written in {tree8_s:.1f} s, "
+            f"kitti360_to_gs {convert8_s:.1f} s; the training CLI ("
+            + ", ".join(K1908_RUN) + f") rc {r.returncode} in {cli_s:.1f} s"
+            f" | {' | '.join(pick)} | test metrics finite {finite8}: "
+            + json.dumps({m: metrics8.get(m) for m in ("Ray drop", "Depth",
+                                                       "Point Cloud mix")})
+            + f" | present: "
+              f"{[os.path.relpath(q, run8) for q in need if os.path.exists(q)]}")
+    init8 = "[init] create_from_pcd: " + ("" if cli_overrides
+                                         else "1000000 ")
+    cli_ok = (r.returncode == 0 and finite8
+              and all(os.path.exists(q) for q in need)
+              and "Refine complete." in lines
+              and any(ln.startswith(init8) for ln in lines)
+              and any(ln.startswith(f"trained {iters} steps")
+                      for ln in lines))
+
+    # --------------------------------------- (d) the 2DGS / 3DGS comparison
+    out = os.path.join(root, "compare_2dgs_3dgs")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(None):
+        compare_2dgs_3dgs.main(["--device", str(device), "--out", out])
+    torch.cuda.synchronize()
+    pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+    say(14, f"(d) 2DGS / 3DGS comparison on {smi}: {pngs} written in "
+            f"{time.perf_counter() - t0:.2f} s | phase 14 "
+            f"{time.perf_counter() - phase_t0:.1f} s")
+    shutil.rmtree(root, ignore_errors=True)
+
+    checked = sorted(rec["checked"])
+    checks_ok = (checked[:1] == [K10750_CHECK_3M]
+                 and rec["checked"][checked[0]][0] == n_points
+                 and any(rec["checked"][i][0] >= cap_min
+                         for i in checked[1:]))
+    if (wrong or bad or len(losses) != K10750_ITERATIONS
+            or n_points != args.num_pts or n_test != 4
+            or any(d != (1, 1) for d in per_step)
+            or n_final < cap_min or not at_cap or not at_3m
+            or not checks_ok or not same or not finite or render_launches != 4
+            or sorted(results) != ["test", "train"]
+            or not oracle_ok or not cli_ok
+            or pngs != ["case1.png", "case2.png"]):
+        raise RuntimeError(
+            f"the KITTI-360 phase failed its checks: events off the "
+            f"schedule {wrong}, {bad}, final count {n_final} (need "
+            f">= {cap_min}), kernel checks at {checked}, checkpoint "
+            f"bitwise {same}, eval finite {finite}, oracle {worst} "
+            f"{oracle_launches}, CLI rc {r.returncode}:\n"
+            f"{chr(10).join(lines[-30:])}\n{r.stderr[-2000:]}")
+    errs = [rec["checked"][i] for i in checked]
+    return (max(e[1] for e in errs), max(e[2] for e in errs), launches,
+            worst)
+
+
 # ---------------------------------------------------------------- phase 7
 def device_idle_share(fn, n):
     """Share of the wall time of n runs of fn in which no kernel, copy or
@@ -3017,6 +3551,7 @@ def main():
     del params, alive, prior, cams, scene
     torch.cuda.empty_cache()
     err12, err12b, _ = phase_opv2v(smi, device)
+    err14, err14b, kitti_launches, _ = phase_kitti360(smi, device)
     gather = phase_gather(device)
     chains = phase_op_chains(device, clock_hz)
     print(smi)
@@ -3029,8 +3564,10 @@ def main():
                              "data-parallel training (phase 13)":
                                  dp_launches[0],
                              "sharded 360-degree renders (phase 13)":
-                                 shard_launches},
-        "max_abs_err": max(err3, err5, err11, err12, err13f, err13r),
+                                 shard_launches,
+                             "kitti360_nvs_10750 training (phase 14)":
+                                 kitti_launches[0]},
+        "max_abs_err": max(err3, err5, err11, err12, err13f, err13r, err14),
         "ms": med["kernel"], "plain_ms": med["plain"],
         "bound_ms": bound_fwd.ms, "bound_by": bound_fwd.bound_by,
         "library_ms": None}, {
@@ -3041,8 +3578,10 @@ def main():
         "launches_by_path": {"training (phase 6)": launches[1],
                              "data-parallel training (phase 13)":
                                  dp_launches[1],
-                             "sharded 360-degree renders (phase 13)": 0},
-        "max_abs_err": max(err3b, err7, err12b, err13b),
+                             "sharded 360-degree renders (phase 13)": 0,
+                             "kitti360_nvs_10750 training (phase 14)":
+                                 kitti_launches[1]},
+        "max_abs_err": max(err3b, err7, err12b, err13b, err14b),
         "ms": med7["backward kernel"],
         "plain_ms": med7["plain backward"],
         "bound_ms": bound_bwd.ms, "bound_by": bound_bwd.bound_by,

@@ -8,6 +8,15 @@ features. With ``respect_tile_rect`` each pixel's candidates are masked
 by the tile-rect rule binning applies and the order is binning's
 quantized depth with gaussian-index ties, so on any scene the tiled
 renderer must agree with it to float tolerance.
+
+It is differentiable, and so the untiled gradient reference of the
+compositors: every accumulator is built out of place, and as in the
+kernels the S feature channels take their weights detached (they carry
+no gradient into alpha) while the 3 normal channels do not. It runs in
+the inputs' float dtype, float64 included. The loop is over gaussians in
+Python and autograd keeps a few dozen pixel-sized tensors for each, so
+its memory grows as P x H x W: it is sized for small scenes (2,048
+gaussians on a 66x515 view take ~12 GiB and ~20 s on an H100).
 """
 
 from __future__ import annotations
@@ -21,7 +30,6 @@ from gslidar_tpu_torch.raster.settings import (ALPHA_EPS, FAR_N,
                                                T_STOP)
 
 
-@torch.no_grad()
 def rasterize_dense(means3D, scales, rotations, opacity, shs, features,
                     mask, viewmat, campos, bg, sh_degree, scale_factor,
                     settings: RasterSettings, colors_precomp=None,
@@ -36,6 +44,7 @@ def rasterize_dense(means3D, scales, rotations, opacity, shs, features,
     VFOV_min, VFOV_max, HFOV_min, HFOV_max = settings.angle_bounds
     near, far = NEAR_N * scale_factor, FAR_N * scale_factor
     dev = means3D.device
+    dt = prep.T.dtype
     big = torch.iinfo(torch.int64).max
     if respect_tile_rect:
         # binning's quantized depth order; equal buckets keep gaussian
@@ -66,21 +75,21 @@ def rasterize_dense(means3D, scales, rotations, opacity, shs, features,
     px, py = xx.reshape(-1), yy.reshape(-1)
     phi = px * (HFOV_max - HFOV_min) / W + HFOV_min
     theta = py * (VFOV_max - VFOV_min) / H + VFOV_min
-    sp, cp = torch.sin(phi), torch.cos(phi)
-    st, ct = torch.sin(theta), torch.cos(theta)
+    # float32 angles, as the kernels take them, then the inputs' dtype
+    sp, cp = torch.sin(phi).to(dt), torch.cos(phi).to(dt)
+    st, ct = torch.sin(theta).to(dt), torch.cos(theta).to(dt)
     tile_x = torch.div(px, settings.tile_w, rounding_mode="floor").long()
     tile_y = torch.div(py, settings.tile_h, rounding_mode="floor").long()
+    px, py = px.to(dt), py.to(dt)
     Tcols = T.transpose(1, 2)      # [P, col(x, y, z), row(u, v, p)]
 
     npix = H * W
     C, S = col.shape[-1], fea.shape[-1]
-    z = torch.zeros(npix, device=dev)
-    T_run = torch.ones(npix, device=dev)
-    C_acc = torch.zeros(C, npix, device=dev)
-    F_acc = torch.zeros(S + 3, npix, device=dev)
-    D, D2, dist, M1, M2 = z.clone(), z.clone(), z.clone(), z.clone(), \
-        z.clone()
-    med_d, med_pos, ncon = z.clone(), z.clone(), z.clone()
+    z = torch.zeros(npix, dtype=dt, device=dev)
+    T_run = torch.ones(npix, dtype=dt, device=dev)
+    C_acc = torch.zeros(C, npix, dtype=dt, device=dev)
+    F_acc = torch.zeros(S + 3, npix, dtype=dt, device=dev)
+    D = D2 = dist = M1 = M2 = med_d = med_pos = ncon = z
     for g in range(means3D.shape[0]):
         Tu, Tv, Tw = Tcols[g, 0], Tcols[g, 1], Tcols[g, 2]
         kx = cp * Tu[0] - sp * Tw[0]
@@ -128,14 +137,17 @@ def rasterize_dense(means3D, scales, rotations, opacity, shs, features,
 
         accept = ok & (T_run * (1 - a) >= T_STOP)
         w = torch.where(accept, a * T_run, 0.0)
-        C_acc += w[None, :] * col[g][:, None]
-        F_acc += w[None, :] * torch.cat([fea[g], nrm[g]])[:, None]
-        D += depth * w
-        D2 += depth * depth * w
+        C_acc = C_acc + w[None, :] * col[g][:, None]
+        # the S features' weights are detached: they do not backprop
+        # into alpha (JAX's w_mix); the normals' weights are not
+        F_acc = F_acc + torch.cat([w.detach()[None, :] * fea[g][:, None],
+                                   w[None, :] * nrm[g][:, None]])
+        D = D + depth * w
+        D2 = D2 + depth * depth * w
         m = far / (far - near) * (1 - near / depth)
-        dist += (m * m * (1 - T_run) + M2 - 2 * m * M1) * w
-        M1 += m * w
-        M2 += m * m * w
+        dist = dist + (m * m * (1 - T_run) + M2 - 2 * m * M1) * w
+        M1 = M1 + m * w
+        M2 = M2 + m * m * w
         med = accept & (T_run > 0.5)
         med_d = torch.where(med, depth, med_d)
         med_pos = torch.where(med, float(g + 1), med_pos)

@@ -220,20 +220,35 @@ def training(args, device, init_params=None, on_step=None, on_event=None,
     vis_path = os.path.join(args.model_path, "visualization")
     os.makedirs(vis_path, exist_ok=True)
     os.makedirs(os.path.join(args.model_path, "ckpt"), exist_ok=True)
+    t0 = time.perf_counter()
     scene = build_scene(args, shuffle=bool(args.shuffle))
     if lead:
         with open(os.path.join(args.model_path, "scale_factor.txt"),
                   "w") as f:
             f.write(str(args.scale_factor))
+        w, h = scene.get_wh()
+        print(f"[scene] {args.scene_type}: "
+              f"{len(scene.scene_info.point_cloud[0])} points, "
+              f"{len(scene.get_train_cameras())} train and "
+              f"{len(scene.scene_info.test_cameras)} test cameras at "
+              f"{h}x{w}, built in {time.perf_counter() - t0:.1f} s",
+              flush=True)
     if data_parallel:
         print(f"[data_parallel] {n_par} cameras/iter over {group.size} "
               f"ranks ({group.backend})", flush=True)
 
     if init_params is None:
         pts, colors, _normals, times = scene.scene_info.point_cloud
+        t0 = time.perf_counter()
         params, aux = create_from_pcd(pts, colors, times,
                                       gaussian_config(args),
                                       seed=args.seed, device=device)
+        if lead:
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize(device)
+            print(f"[init] create_from_pcd: {params['xyz'].shape[0]} "
+                  f"gaussians in {time.perf_counter() - t0:.1f} s",
+                  flush=True)
     else:
         params = init_params
         aux = GaussianAux.zeros(params["xyz"].shape[0], device)
@@ -262,7 +277,8 @@ def training(args, device, init_params=None, on_step=None, on_event=None,
         return (step,
                 make_densify_fn(args, cfg),
                 make_eval_render(args, cfg, settings, bg),
-                make_eval_render360(args, cfg, settings, bg),
+                (make_eval_render360(args, cfg, settings, bg)
+                 if bool(args.get("eval_full360", True)) else None),
                 make_eval_render(args, cfg, half, bg), cfg)
 
     def event(iteration, name, info=None):

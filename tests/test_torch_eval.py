@@ -176,14 +176,14 @@ def _scene_args(model_path):
          "test_only": False})
 
 
-def _jax_eval(tmp_path, params, alive, prior, sh_degree):
+def _jax_eval(tmp_path, params, alive, prior, sh_degree, full360=True):
     import jax.numpy as jnp
     from gslidar_tpu.data.scene import Scene
     from gslidar_tpu.data.synthetic import read_synthetic_info
     from gslidar_tpu.engine import evaluate as E
     from gslidar_tpu.models import gaussians as G
     from gslidar_tpu.raster.settings import RasterSettings
-    args = _scene_args(tmp_path / "jax")
+    args = _scene_args(tmp_path / ("jax" if full360 else "jax_stitch"))
     os.makedirs(args.model_path)
     np.random.seed(0)
     scene = Scene(args, read_synthetic_info(args), shuffle=False)
@@ -203,15 +203,15 @@ def _jax_eval(tmp_path, params, alive, prior, sh_degree):
                           E.make_eval_render(args, cfg, settings, bg),
                           is_final=True, save_raydrop_data=True,
                           eval_render360=E.make_eval_render360(
-                              args, cfg, settings, bg))
+                              args, cfg, settings, bg) if full360 else None)
     return args, res
 
 
-def _torch_eval(tmp_path, params, alive, prior, sh_degree):
+def _torch_eval(tmp_path, params, alive, prior, sh_degree, full360=True):
     from gslidar_tpu_torch.engine import evaluate as E
     from gslidar_tpu_torch.models import gaussians as G
     from gslidar_tpu_torch.render import build_scene, raster_settings
-    args = _scene_args(tmp_path / "torch")
+    args = _scene_args(tmp_path / ("torch" if full360 else "torch_stitch"))
     os.makedirs(args.model_path)
     np.random.seed(0)
     scene = build_scene(args)
@@ -226,7 +226,7 @@ def _torch_eval(tmp_path, params, alive, prior, sh_degree):
                           E.make_eval_render(args, cfg, settings, bg),
                           is_final=True, save_raydrop_data=True,
                           eval_render360=E.make_eval_render360(
-                              args, cfg, settings, bg))
+                              args, cfg, settings, bg) if full360 else None)
     return args, res
 
 
@@ -259,7 +259,9 @@ def _metric_bounds(a, b, gt, vmax):
                 PSNR=2.5 * 20 / np.log(10) * d_rms / rmse)
 
 
-def test_complete_eval_matches_jax(tmp_path, monkeypatch):
+def _eval_inputs(tmp_path, monkeypatch):
+    """Random LPIPS weights under GSLIDAR_LPIPS_WEIGHTS, and a model and
+    a ray-drop prior for both packages."""
     from gslidar_tpu.data.synthetic import read_synthetic_info
     from gslidar_tpu.utils import metrics as JM
     path = _write_lpips(tmp_path / "lpips.npz", 8, "npz")
@@ -272,8 +274,57 @@ def test_complete_eval_matches_jax(tmp_path, monkeypatch):
     params, alive = _model(read_synthetic_info(args).point_cloud[0])
     prior = np.random.default_rng(9).normal(
         -1.5, 1.0, (1, HW[0], 2 * HW[1])).astype(np.float32)
+    return params, alive, prior
+
+
+def test_complete_eval_matches_jax(tmp_path, monkeypatch):
+    params, alive, prior = _eval_inputs(tmp_path, monkeypatch)
     ja, jres = _jax_eval(tmp_path, params, alive, prior, 3)
     ta, tres = _torch_eval(tmp_path, params, alive, prior, 3)
+    _check_eval(ja, jres, ta, tres)
+
+
+def test_complete_eval_stitch_matches_jax(tmp_path, monkeypatch):
+    """``eval_render360=None`` (root train.py's ``eval_full360=false``):
+    both packages render the two halves and stitch them; the port's
+    arrays match JAX's stitched ones and are not its own 360-degree
+    pass's, which differs at tile-column edges."""
+    params, alive, prior = _eval_inputs(tmp_path, monkeypatch)
+    ja, jres = _jax_eval(tmp_path, params, alive, prior, 3, full360=False)
+    ta, tres = _torch_eval(tmp_path, params, alive, prior, 3, full360=False)
+    _check_eval(ja, jres, ta, tres)
+    t360, _ = _torch_eval(tmp_path, params, alive, prior, 3)
+    rd = "ray_drop_datasets/render_test"
+    names = sorted(os.listdir(os.path.join(ta.model_path, rd)))
+    stitched = [np.load(os.path.join(ta.model_path, rd, n)) for n in names]
+    one_pass = [np.load(os.path.join(t360.model_path, rd, n))
+                for n in names]
+    assert not all(np.array_equal(a, b) for a, b in zip(stitched, one_pass))
+
+
+def test_training_passes_eval_full360(tmp_path, monkeypatch):
+    """The training loop hands ``complete_eval`` the one-pass 360-degree
+    render only under ``eval_full360`` (root train.py:220-221); with
+    false it hands None, and the halves are stitched."""
+    import gslidar_tpu_torch.train as T
+    seen = []
+
+    def fake_eval(*a, eval_render360=None, **k):
+        seen.append(eval_render360)
+        return {}
+    monkeypatch.setattr(T, "complete_eval", fake_eval)
+    for flag in ("true", "false"):
+        args = T.load_args(
+            os.path.join(REPO, "configs", "synthetic_smoke.yaml"),
+            os.path.join(REPO, "configs", "base.yaml"),
+            ["hw=[16,64]", "num_pts=500", "frames=4", "iterations=0",
+             f"model_path={tmp_path / flag}", f"eval_full360={flag}"])
+        T.training(args, torch.device("cpu"))
+    assert len(seen) == 2
+    assert callable(seen[0]) and seen[1] is None
+
+
+def _check_eval(ja, jres, ta, tres):
     assert sorted(jres) == sorted(tres) == ["test", "train"]
 
     # the refinement's inputs, at the render bars

@@ -17,6 +17,8 @@ smoke test refuses to run without a card.
 * the parallel layer (``parallel.{comm,shard,pano_shard}``,
   ``raster.oracle``) imports and runs a data-parallel step and a
   gaussian-sharded render over its loopback the same way;
+* the raw KITTI-360 tree writer and converter, the dense oracle's
+  gradients and ``scripts.compare_2dgs_3dgs`` run the same way;
 * ``python3 chip_smoke.py`` with CUDA hidden exits non-zero with a clear
   message and prints no result line.
 """
@@ -267,6 +269,44 @@ def test_parallel_layer_runs_without_jax():
     assert r.returncode == 0, r.stderr[-3000:]
     assert "gshard_dropped=0 ok (loopback)" in r.stdout
     assert "NO_JAX_OK" in r.stdout
+
+
+def test_kitti360_tree_oracle_and_comparison_run_without_jax(tmp_path):
+    """The raw KITTI-360 tree writer and its converter, the dense oracle's
+    gradients and the 2DGS / 3DGS comparison script run where ``import
+    jax`` and ``import gslidar_tpu`` fail."""
+    code = (BLOCK_JAX + "import torch; torch.set_num_threads(2); "
+            "from gslidar_tpu_torch.data.kitti360_tree import "
+            "write_kitti360_tree; "
+            "from gslidar_tpu_torch.data.preprocess import kitti360_to_gs; "
+            "from gslidar_tpu_torch.raster.oracle import rasterize_dense; "
+            "from gslidar_tpu_torch.raster.scenes import splat_scene; "
+            "from gslidar_tpu_torch.raster.settings import RasterSettings; "
+            "from gslidar_tpu_torch.scripts import compare_2dgs_3dgs; "
+            f"root = {str(tmp_path / 'data')!r}; "
+            "kitti, n = write_kitti360_tree(root, 1908, 1971, 100); "
+            "kitti360_to_gs.main('1908', kitti, root); "
+            "import numpy as np; "
+            "sc = {k: torch.as_tensor(v) for k, v in "
+            "splat_scene(np.random.default_rng(0), 16).items()}; "
+            "m = sc['means'].requires_grad_(); "
+            "st = RasterSettings(height=16, width=32, vfov=(-20.0, 20.0), "
+            "hfov=(-60.0, 60.0), num_extra_features=sc['feats'].shape[1]); "
+            "out = rasterize_dense(m, sc['scales'], sc['quats'], sc['opac'], "
+            "sc['shs'], sc['feats'], sc['mask'], sc['viewmat'], "
+            "sc['campos'], torch.tensor([0.0, 0.0, 0.0, 1.0]), 3, 1.0, st); "
+            "g, = torch.autograd.grad(out['color'].sum(), m); "
+            "assert bool(torch.isfinite(g).all()); "
+            "compare_2dgs_3dgs.main(['--device', 'cpu', '--out', "
+            f"{str(tmp_path / 'cmp')!r}]); "
+            + NONE_LOADED + "print('NO_JAX_OK', n)")
+    r = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "NO_JAX_OK 6400" in r.stdout
+    assert (tmp_path / "data" / "1908" / "transforms_1908_all.json").exists()
+    assert (tmp_path / "cmp" / "case1.png").exists()
+    assert (tmp_path / "cmp" / "case2.png").exists()
 
 
 def test_chip_smoke_fails_without_a_card():
