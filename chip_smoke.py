@@ -211,7 +211,24 @@ failing phase raises:
    densify's counts and time, the checkpoint's bytes and its save and
    load seconds, the eval's seconds, the 360-degree render's time, the
    instances per step and the peak memory by stage;
-15. the result: the card's nvidia-smi line, one JSON line of the kernels
+15. the measurement entry points at full width: the forward kernel
+   against its plain version on ``gslidar_tpu_torch.bench.build_scene``'s
+   1,000,000 gaussians rendered as the bench's 66x1030 wrap_x panorama
+   (16x16 tiles, as serving runs it), and both kernels on one step of
+   ``scripts.bench_train_step``'s 1M-gaussian model at 66x515
+   (``check_step_kernels``, phase 7's bars); then, the launch counts set
+   to 0, ``python -m gslidar_tpu_torch.bench`` in a subprocess at
+   1,000,000 and at 10,000,000 gaussians (its last line must be one JSON
+   object with ``metric``, ``value`` > 0, ``unit``, ``vs_baseline`` and
+   ``backend``, and it must launch the forward kernel once per render),
+   and in this process ``bench_train_step`` at 1M, ``profile_render
+   --tiles 16x16 8x32 16x32 32x32 --trace``, ``profile_train_step
+   --trace``, ``tile_stats`` and ``measure_tight_rects`` (whose render
+   with tight rects must meet tests/test_raster.py's bars against the one
+   without). It prints renders/s at 1M and 10M, the step's ms and idle
+   share, each stage's ms, the per-tile statistics and the bench path's
+   launches;
+16. the result: the card's nvidia-smi line, one JSON line of the kernels
    (kernels 1-2 with their launches on each path), and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -259,6 +276,10 @@ import os
 import statistics
 import subprocess
 import time
+
+from gslidar_tpu_torch.microbench.timing import (card, cuda_timed,
+                                                 device_idle_share,
+                                                 forward_pass_ms)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
@@ -309,10 +330,7 @@ def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this smoke test runs only on a CUDA card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card(torch.device("cuda", 0))
     cap = torch.cuda.get_device_capability(0)
     say(1, f"device: {smi} | torch {torch.__version__} | cuda "
            f"{torch.version.cuda} | capability {cap} | count "
@@ -535,22 +553,6 @@ def check_step_kernels(phase, label, bwd_args, seed):
         if not ok:
             failed.append(kind)
     return failed, summ_f["raw_max_abs_err"], summ_b["raw_max_abs_err"]
-
-
-def cuda_timed(fn, out_ms):
-    """``fn`` timed by CUDA events: each call appends its ms to
-    ``out_ms``."""
-    import torch
-
-    def run(*a, **k):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        out = fn(*a, **k)
-        ev[1].record()
-        torch.cuda.synchronize()
-        out_ms.append(ev[0].elapsed_time(ev[1]))
-        return out
-    return run
 
 
 class Stages:
@@ -3097,36 +3099,6 @@ def phase_kitti360(smi, device, points=KITTI_POINTS, overrides=(),
 
 
 # ---------------------------------------------------------------- phase 7
-def device_idle_share(fn, n):
-    """Share of the wall time of n runs of fn in which no kernel, copy or
-    memset ran on the card (torch.profiler), and the device time by name."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:                       # union of the device spans
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                (e.time_range.end - e.time_range.start) / 1e3 / n
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return 1.0 - busy / wall_us, busy / 1e3 / n, wall_us / 1e3 / n, top
-
-
 def phase_train_step(args, scene, init_params, device, smi):
     """One full-size training step at TIMED_ITERATION: the backward kernel
     vs plain on its rows, then stage timings and the idle share."""
@@ -3289,49 +3261,6 @@ def phase_train_step(args, scene, init_params, device, smi):
 
 
 # ------------------------------------------------------- compositor bounds
-def forward_pass_ms(fn, n=10, tries=3):
-    """The forward kernel's passes in n calls of fn (one forward each),
-    from ``torch.profiler``'s device events over n + 1 calls in one
-    session, the first left out (the profiler can miss launches at its
-    start): per pass, its device time summed over its launches in one
-    forward, median of n, and its launches; and the device span of one
-    forward's passes, from the first start to the last end (median of n).
-    The session is taken again, up to ``tries`` times, until it holds the
-    n forwards' launches whole and in order."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from gslidar_tpu_torch.kernels import FWD_PASSES
-    from gslidar_tpu_torch.raster.composite_fwd import WINDOW_ENDS
-    # one forward's launches: the product and the scan pass once per
-    # window of batches, then the blend and the merge
-    order = ["product", "scan"] * (len(WINDOW_ENDS) + 1) + ["blend", "merge"]
-    k = len(order)
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n + 1):
-                fn()
-            torch.cuda.synchronize()
-        ev = sorted((e.time_range.start, e.time_range.end, p)
-                    for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    for p in FWD_PASSES if f"fwd_{p}_kernel" in e.name)
-        groups = [ev[len(ev) - (i + 1) * k:len(ev) - i * k]
-                  for i in range(n)]
-        if len(ev) >= n * k and all([q for _, _, q in g] == order
-                                    for g in groups):
-            break
-    else:
-        raise RuntimeError(f"torch.profiler caught {len(ev)} launches of "
-                           f"the forward's passes, not the last {n} "
-                           f"forwards' {k} each in order")
-    ms = {p: statistics.median(sum(b - a for a, b, q in g if q == p) / 1e3
-                               for g in groups) for p in FWD_PASSES}
-    span = statistics.median((g[-1][1] - g[0][0]) / 1e3 for g in groups)
-    return ms, {p: order.count(p) for p in FWD_PASSES}, span
-
-
 def say_passes(phase, smi, passes, whole_ms):
     ms, launches, span = passes
     say(phase, f"forward passes on {smi}, device time per forward "
@@ -3517,6 +3446,164 @@ def phase_op_chains(device, clock_hz):
                 bound_ms=sum(r["bound"].ms for r in rows))
 
 
+# --------------------------------------------------------------- phase 15
+BENCH_POINTS = (1_000_000, 10_000_000)   # 10M: kitti360_nvs_10750's
+                                         # densify_until_num_points
+BENCH_RENDERS = 50
+BENCH_TILES = ("16x16", "8x32", "16x32", "32x32")
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "backend"}
+
+
+def run_entry(phase, main, argv):
+    """An entry point's ``main(argv)`` in this process, each line it
+    prints prefixed by the phase (also when it raises); returns them."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            main(argv)
+    finally:
+        lines = buf.getvalue().strip().splitlines()
+        for ln in lines:
+            say(phase, ln)
+    return lines
+
+
+def run_bench(phase, P, device):
+    """``python -m gslidar_tpu_torch.bench --points P`` in a subprocess:
+    its last line's keys and value checked, and its forward launches,
+    which must be one per render it made. Returns (the JSON, launches)."""
+    import sys
+    cmd = [sys.executable, "-m", "gslidar_tpu_torch.bench", "--points",
+           str(P), "--renders", str(BENCH_RENDERS), "--device", device.type]
+    r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                       timeout=900)
+    lines = r.stdout.strip().splitlines()
+    for ln in lines[:-1]:
+        say(phase, f"bench --points {P}: {ln}")
+    if r.returncode:
+        raise RuntimeError(f"{' '.join(cmd[1:])} exited {r.returncode}: "
+                           f"{r.stderr[-3000:]}")
+    res = json.loads(lines[-1])
+    say(phase, f"bench --points {P}, its last line: {lines[-1]}")
+    from gslidar_tpu_torch.bench import points_label
+    metric = f"pano_360_renders_per_sec_66x1030_{points_label(P)}_gaussians"
+    if set(res) != BENCH_KEYS or res["metric"] != metric or \
+            not res["value"] > 0 or res["backend"] != device.type:
+        raise RuntimeError(f"the bench's last line is not its result: {res}")
+    launches = int(next(ln for ln in lines if ln.startswith(
+        "forward kernel launches:")).split(":")[1])
+    # the first render, the median's warm-up and renders, the rate's
+    want = 2 + 2 * BENCH_RENDERS if device.type == "cuda" else 0
+    if launches != want:
+        raise RuntimeError(f"the bench launched the forward kernel "
+                           f"{launches} times, not once per render ({want})")
+    return res, launches
+
+
+def phase_bench(device, points=BENCH_POINTS, step_points=NUM_GAUSSIANS):
+    """The measurement entry points on their own scenes: the forward kernel
+    against its plain version on ``bench.build_scene``'s 360-degree render
+    and the backward on a ``bench_train_step`` step (their launches not
+    counted); then, with the counts set to 0, ``python -m
+    gslidar_tpu_torch.bench`` at each of ``points`` in a subprocess, and
+    ``bench_train_step``, ``profile_render --tiles BENCH_TILES --trace``,
+    ``profile_train_step --trace``, ``tile_stats`` and
+    ``measure_tight_rects`` in this process. Returns (the forward's and
+    the backward's largest errors, the bench path's forward and backward
+    launches, the renders per second at each of ``points``)."""
+    import torch
+    import gslidar_tpu_torch.raster.composite_op as co
+    from gslidar_tpu_torch import bench
+    from gslidar_tpu_torch.raster.binning import bin_gaussians
+    from gslidar_tpu_torch.raster.composite_bwd import composite_backward
+    from gslidar_tpu_torch.raster.composite_fwd import (composite_forward,
+                                                        make_params,
+                                                        pack_payload)
+    from gslidar_tpu_torch.raster.preprocess import preprocess
+    from gslidar_tpu_torch.scripts import bench_train_step as bts
+    from gslidar_tpu_torch.scripts import (measure_tight_rects,
+                                           profile_render,
+                                           profile_train_step, tile_stats)
+    t0 = time.perf_counter()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    sf, P = bench.SCALE_FACTOR, points[0]
+    s = bench.bench_settings()
+    scene = bench.build_scene(P, 0, device)
+    saved = (composite_forward.launches, composite_backward.launches)
+    with torch.no_grad():
+        prep = preprocess(scene["means3D"], scene["scales"],
+                          scene["rotations"], scene["opacity"], scene["shs"],
+                          scene["mask"], torch.eye(4, device=device),
+                          torch.zeros(3, device=device), bench.SH_DEGREE, sf,
+                          s)
+        b = bin_gaussians(prep.rect_min, prep.rect_max, prep.depth,
+                          prep.tiles_touched, sf, s,
+                          payload=pack_payload(prep, scene["opacity"],
+                                               scene["features"]))
+        ok, summ, _, _ = run_pair(b.data_rows.contiguous(), b.tile_starts,
+                                  make_params(sf, s), s, 4, 4)
+    composite_forward.launches, composite_backward.launches = saved
+    say(15, f"forward kernel vs plain on bench.build_scene({P})'s "
+            f"360-degree render ({b.num_pairs} instances, {s.height}x"
+            f"{s.width}, {s.tile_h}x{s.tile_w} tiles): "
+            f"{'ok' if ok else 'FAIL'} {json.dumps(summ)}")
+    if not ok:
+        raise RuntimeError("the forward kernel disagrees with its plain "
+                           "version on the bench scene")
+    err_f = summ["raw_max_abs_err"]
+    del scene, prep, b
+
+    tb = bts.setup(step_points, 16, 16, device)
+    captured = {}
+    bwd_orig = co.composite_backward
+
+    def bwd_keep(*a):
+        captured["bwd"] = a
+        return bwd_orig(*a)
+
+    co.composite_backward = bwd_keep
+    try:
+        tb.step(tb.state, tb.cams[0], bts.ITERATION, bts.SH_DEGREE, 0.0,
+                True)
+    finally:
+        co.composite_backward = bwd_orig
+    composite_forward.launches, composite_backward.launches = saved
+    failed, err_sf, err_b = check_step_kernels(
+        15, f"on a bench_train_step step ({step_points} gaussians)",
+        captured.pop("bwd"), SEED + 23)
+    if failed:
+        raise RuntimeError(f"{failed} kernel vs plain on the bench step")
+    del tb
+    say(15, f"kernels vs plain: {time.perf_counter() - t0:.1f} s")
+
+    trace = ["--trace"] if device.type == "cuda" else []
+    dev = ["--device", device.type]
+    composite_forward.launches = composite_backward.launches = 0
+    rates, sub_launches = {}, 0
+    for n in points:
+        res, k = run_bench(15, n, device)
+        rates[n], sub_launches = res["value"], sub_launches + k
+    run_entry(15, bts.main, ["--points", str(step_points), *dev])
+    run_entry(15, profile_render.main, ["--points", str(P), "--tiles",
+                                        *BENCH_TILES, *trace, *dev])
+    run_entry(15, profile_train_step.main, ["--points", str(step_points),
+                                            *trace, *dev])
+    run_entry(15, tile_stats.main, ["--points", str(P), *dev])
+    run_entry(15, measure_tight_rects.main, ["--points", str(P), *dev])
+    launches = (composite_forward.launches + sub_launches,
+                composite_backward.launches)
+    say(15, f"bench path: renders/s {rates} | launches: forward "
+            f"{launches[0]} ({sub_launches} in the bench's subprocesses), "
+            f"backward {launches[1]} | {time.perf_counter() - t0:.1f} s")
+    if device.type == "cuda" and min(launches) == 0:
+        raise RuntimeError(f"the bench path launched {launches} forward and "
+                           "backward kernels")
+    return max(err_f, err_sf), err_b, launches, rates
+
+
 def main():
     smi = phase_device()
     import torch
@@ -3552,6 +3639,7 @@ def main():
     torch.cuda.empty_cache()
     err12, err12b, _ = phase_opv2v(smi, device)
     err14, err14b, kitti_launches, _ = phase_kitti360(smi, device)
+    err15, err15b, bench_launches, _ = phase_bench(device)
     gather = phase_gather(device)
     chains = phase_op_chains(device, clock_hz)
     print(smi)
@@ -3566,8 +3654,10 @@ def main():
                              "sharded 360-degree renders (phase 13)":
                                  shard_launches,
                              "kitti360_nvs_10750 training (phase 14)":
-                                 kitti_launches[0]},
-        "max_abs_err": max(err3, err5, err11, err12, err13f, err13r, err14),
+                                 kitti_launches[0],
+                             "bench (phase 15)": bench_launches[0]},
+        "max_abs_err": max(err3, err5, err11, err12, err13f, err13r, err14,
+                           err15),
         "ms": med["kernel"], "plain_ms": med["plain"],
         "bound_ms": bound_fwd.ms, "bound_by": bound_fwd.bound_by,
         "library_ms": None}, {
@@ -3580,8 +3670,9 @@ def main():
                                  dp_launches[1],
                              "sharded 360-degree renders (phase 13)": 0,
                              "kitti360_nvs_10750 training (phase 14)":
-                                 kitti_launches[1]},
-        "max_abs_err": max(err3b, err7, err12b, err13b, err14b),
+                                 kitti_launches[1],
+                             "bench (phase 15)": bench_launches[1]},
+        "max_abs_err": max(err3b, err7, err12b, err13b, err14b, err15b),
         "ms": med7["backward kernel"],
         "plain_ms": med7["plain backward"],
         "bound_ms": bound_bwd.ms, "bound_by": bound_bwd.bound_by,

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from gslidar_tpu_torch.microbench import bounds
-from gslidar_tpu_torch.microbench.timing import time_ms
+from gslidar_tpu_torch.microbench.timing import entry_device, time_ms
 
 ROWS = 1_000_000
 WIDTH = 128
@@ -143,10 +143,7 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=SEED)
     parser.add_argument("--reps", type=int, default=REPS)
     a = parser.parse_args(argv)
-    device = torch.device(a.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: pass --device cpu to run the "
-                         "plain PyTorch version")
+    device = entry_device(a.device)
     r = run(device, a.rows, a.width, a.ids, a.seed, a.reps)
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu (the plain version, no kernel)")

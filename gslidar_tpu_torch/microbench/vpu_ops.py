@@ -29,13 +29,12 @@ its instructions' issue.
 from __future__ import annotations
 
 import argparse
-import statistics
 
 import numpy as np
 import torch
 
 from gslidar_tpu_torch.microbench import bounds
-from gslidar_tpu_torch.microbench.timing import time_ms
+from gslidar_tpu_torch.microbench.timing import entry_device, median_ms
 
 SUB, LANE = 256, 512
 STEPS = 64
@@ -219,10 +218,6 @@ def op_chain(x: torch.Tensor, case: str, steps: int = STEPS) -> torch.Tensor:
 op_chain.launches = 0
 
 
-def _median_ms(fn, device, reps):
-    return statistics.median(time_ms(fn, device) for _ in range(reps))
-
-
 def slope(x, case, reps=REPS, steps_hi=STEPS_HI):
     """ms of the chain at ``STEPS`` and ``steps_hi`` steps (median of reps
     after a warm-up) and the slope between them in ns per full-block
@@ -232,8 +227,8 @@ def slope(x, case, reps=REPS, steps_hi=STEPS_HI):
     hi = lambda: op_chain(x, case, steps_hi)               # noqa: E731
     lo()
     hi()
-    ms_lo = _median_ms(lo, x.device, reps)
-    ms_hi = _median_ms(hi, x.device, reps)
+    ms_lo = median_ms(lo, x.device, reps, warmup=0)
+    ms_hi = median_ms(hi, x.device, reps, warmup=0)
     return ms_lo, ms_hi, (ms_hi - ms_lo) * 1e6 / ((steps_hi - STEPS) * ops)
 
 
@@ -280,10 +275,7 @@ def main(argv=None):
     parser.add_argument("--cols", type=int, default=LANE,
                         help="block width (even)")
     a = parser.parse_args(argv)
-    device = torch.device(a.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: pass --device cpu to time the "
-                         "plain PyTorch version")
+    device = entry_device(a.device)
     on_card = device.type == "cuda"
     # the plain version at 512 steps is ~17k small launches a case
     rows = run(device, a.reps, steps_hi=STEPS_HI if on_card else 2 * STEPS,

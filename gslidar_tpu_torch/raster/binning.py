@@ -43,26 +43,15 @@ def depth_quant(depth, scale_factor, settings: RasterSettings):
                            dq_max).to(torch.int64)
 
 
-def bin_gaussians(rect_min, rect_max, depth, tiles_touched, scale_factor,
-                  settings: RasterSettings,
-                  payload: Optional[torch.Tensor] = None) -> Binning:
-    """Duplicate gaussians into per-tile instance lists sorted by
-    (tile, quantized depth).
-
-    Args:
-        rect_min, rect_max: [P, 2] int tile rects (x wraps mod tiles_x
-            when ``settings.wrap_x``).
-        depth: [P] spherical center range (the sort depth).
-        tiles_touched: [P] int instance count per gaussian.
-        payload: optional [P, D] rows, gathered once into sorted order.
-    """
+def expand_instances(rect_min, rect_max, depth, tiles_touched, total,
+                     scale_factor, settings: RasterSettings):
+    """The expansion pass: one (gaussian, tile) instance per covered tile,
+    gaussian-major. Returns ([total] gaussian index, [total] int64 sort
+    key ``tile << depth_bits | dq``)."""
     device = depth.device
     P = depth.shape[0]
     gx = settings.tiles_x
-    db = settings.depth_bits
-
     tt = tiles_touched.to(torch.int64)
-    total = int(tt.sum())                          # the one host sync
     gid = torch.repeat_interleave(torch.arange(P, device=device), tt,
                                   output_size=total)
     offsets = torch.cumsum(tt, 0) - tt
@@ -78,18 +67,43 @@ def bin_gaussians(rect_min, rect_max, depth, tiles_touched, scale_factor,
         # most tiles_x wide, so one conditional subtract is the mod
         xcol = torch.where(xcol >= gx, xcol - gx, xcol)
     tile = (y0 + dy) * gx + xcol
-
     dq = depth_quant(depth, scale_factor, settings)
-    key = (tile << db) | dq[gid]
+    return gid, (tile << settings.depth_bits) | dq[gid]
+
+
+def sort_instances(gid, key, settings: RasterSettings):
+    """The sort pass: the int64 stable sort of the keys, the gaussian
+    index permuted along, and each tile's range. Returns (gid_sorted,
+    tile_sorted, int32 tile_starts)."""
     key_s, perm = torch.sort(key, stable=True)
-    gid_s = gid[perm]
-    tile_s = key_s >> db
+    tile_s = key_s >> settings.depth_bits
     tile_starts = torch.searchsorted(
-        tile_s, torch.arange(settings.num_tiles + 1, device=device))
+        tile_s, torch.arange(settings.num_tiles + 1, device=key.device))
+    return gid[perm], tile_s, tile_starts.to(torch.int32)
+
+
+def bin_gaussians(rect_min, rect_max, depth, tiles_touched, scale_factor,
+                  settings: RasterSettings,
+                  payload: Optional[torch.Tensor] = None) -> Binning:
+    """Duplicate gaussians into per-tile instance lists sorted by
+    (tile, quantized depth): the host sync of the total, the expansion,
+    the sort and the payload gather.
+
+    Args:
+        rect_min, rect_max: [P, 2] int tile rects (x wraps mod tiles_x
+            when ``settings.wrap_x``).
+        depth: [P] spherical center range (the sort depth).
+        tiles_touched: [P] int instance count per gaussian.
+        payload: optional [P, D] rows, gathered once into sorted order.
+    """
+    total = int(tiles_touched.to(torch.int64).sum())     # the one host sync
+    gid, key = expand_instances(rect_min, rect_max, depth, tiles_touched,
+                                total, scale_factor, settings)
+    gid_s, tile_s, tile_starts = sort_instances(gid, key, settings)
     return Binning(
         gid_sorted=gid_s,
         tile_sorted=tile_s,
-        tile_starts=tile_starts.to(torch.int32),
+        tile_starts=tile_starts,
         num_pairs=total,
         data_rows=payload[gid_s] if payload is not None else None,
     )

@@ -14,7 +14,10 @@ replace, and the least-time bounds.
   card, and the division on whole warps of in-range divisors and over
   every exponent (they skip without one);
 * ``bounds``: a hand-countable compositor scene, the gather's bytes and
-  the op chains' issue bounds.
+  the op chains' issue bounds;
+* ``timing``: ``median_ms`` and ``calls_per_sec`` on the CPU (their call
+  counts, and times no shorter than a known sleep), ``entry_device``
+  refusing ``cuda`` without a card; on the card, CUDA events.
 
 ``scripts/`` is no package, so the script is loaded by path. JAX is
 imported inside the tests that use it, so that the card-only cases also
@@ -24,12 +27,13 @@ run where JAX is not installed.
 import functools
 import importlib.util
 import os
+import time
 
 import numpy as np
 import pytest
 import torch
 
-from gslidar_tpu_torch.microbench import bounds, dma_gather, vpu_ops
+from gslidar_tpu_torch.microbench import bounds, dma_gather, timing, vpu_ops
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -404,12 +408,56 @@ def test_gather_entry_point_on_cpu(capsys):
     assert "correctness: OK" in capsys.readouterr().out
 
 
+# ------------------------------------------------------- timers
+class _Sleeper:
+    """A call that sleeps ``ms`` and counts its calls."""
+
+    def __init__(self, ms):
+        self.ms, self.calls = ms, 0
+
+    def __call__(self):
+        self.calls += 1
+        time.sleep(self.ms / 1e3)
+
+
+def test_median_ms_on_cpu():
+    fn = _Sleeper(5)
+    ms = timing.median_ms(fn, torch.device("cpu"), reps=5, warmup=2)
+    assert fn.calls == 7
+    assert 5 <= ms < 1000
+
+
+def test_calls_per_sec_on_cpu():
+    fn = _Sleeper(5)
+    rate = timing.calls_per_sec(fn, 4, torch.device("cpu"))
+    assert fn.calls == 4
+    assert 0 < rate <= 200
+
+
+def test_entry_device_refuses_cuda_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA"):
+        timing.entry_device("cuda")
+    assert timing.entry_device("cpu") == torch.device("cpu")
+    assert timing.card(torch.device("cpu")).startswith("cpu")
+
+
 # ------------------------------------------------------- on the card
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_timers_on_card(cuda_device):
+    """CUDA events time the card's work: a 4096^2 matmul takes longer
+    than nothing, and back-to-back calls end in one synchronize."""
+    x = torch.randn(4096, 4096, device=cuda_device)
+    ms = timing.median_ms(lambda: x @ x, cuda_device, reps=3)
+    assert ms > timing.median_ms(lambda: None, cuda_device, reps=3)
+    assert 0 < timing.calls_per_sec(lambda: x @ x, 5, cuda_device) < 1e5
 
 
 @pytest.mark.cuda

@@ -19,6 +19,10 @@ smoke test refuses to run without a card.
   gaussian-sharded render over its loopback the same way;
 * the raw KITTI-360 tree writer and converter, the dense oracle's
   gradients and ``scripts.compare_2dgs_3dgs`` run the same way;
+* the bench and the measurement scripts (``gslidar_tpu_torch.bench``,
+  ``scripts.{bench_train_step,profile_render,profile_train_step,
+  tile_stats,measure_tight_rects}``) run the same way on the CPU, and
+  each refuses to start without a card unless given ``--device cpu``;
 * ``python3 chip_smoke.py`` with CUDA hidden exits non-zero with a clear
   message and prints no result line.
 """
@@ -307,6 +311,49 @@ def test_kitti360_tree_oracle_and_comparison_run_without_jax(tmp_path):
     assert (tmp_path / "data" / "1908" / "transforms_1908_all.json").exists()
     assert (tmp_path / "cmp" / "case1.png").exists()
     assert (tmp_path / "cmp" / "case2.png").exists()
+
+
+ENTRY_POINTS = ("gslidar_tpu_torch.bench",
+                "gslidar_tpu_torch.scripts.bench_train_step",
+                "gslidar_tpu_torch.scripts.profile_render",
+                "gslidar_tpu_torch.scripts.profile_train_step",
+                "gslidar_tpu_torch.scripts.tile_stats",
+                "gslidar_tpu_torch.scripts.measure_tight_rects")
+
+
+def test_bench_and_scripts_run_without_jax():
+    """Each measurement entry point's ``main`` on the CPU at 512 gaussians
+    (the train-step scripts on a 16x64 panorama), where ``import jax`` and
+    ``import gslidar_tpu`` fail."""
+    cpu = "'--device', 'cpu', '--points', '512'"
+    code = (BLOCK_JAX + "import importlib, torch; torch.set_num_threads(2); "
+            f"mods = [importlib.import_module(m) for m in {ENTRY_POINTS!r}]; "
+            "mods[1].H, mods[1].W = 16, 64; "
+            f"mods[0].main([{cpu}, '--renders', '1']); "
+            f"mods[1].main([{cpu}, '--steps', '1']); "
+            f"mods[2].main([{cpu}, '--reps', '1']); "
+            f"mods[3].main([{cpu}, '--reps', '1']); "
+            f"mods[4].main([{cpu}, '--tiles', '16x16']); "
+            f"mods[5].main([{cpu}]); "
+            + NONE_LOADED + "print('NO_JAX_OK')")
+    r = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    out = r.stdout
+    assert '"backend": "cpu"' in out and "ms/step" in out
+    assert "FULL 360 single-pass render" in out and "FULL train step" in out
+    assert "tile 16x16: grid 5x65" in out and "K per-row" in out
+    assert out.strip().endswith("NO_JAX_OK")
+
+
+@pytest.mark.parametrize("module", ENTRY_POINTS)
+def test_entry_points_refuse_without_a_card(module):
+    r = subprocess.run([sys.executable, "-m", module, "--points", "64"],
+                       cwd=REPO, env=_env(CUDA_VISIBLE_DEVICES=""),
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert "no CUDA device" in r.stderr
+    assert '"metric"' not in r.stdout
 
 
 def test_chip_smoke_fails_without_a_card():

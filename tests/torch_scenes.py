@@ -110,7 +110,7 @@ def _rel_close(a, b, rtol, name=""):
 
 def assert_step_matches(jstate, tstate, cam, iteration=7001, sh=3,
                         stats_on=True, args=None, cfg_kw=None,
-                        time_shift=0.0):
+                        time_shift=0.0, no_grad_keys=("intensity",)):
     """One step of gslidar_tpu's make_train_step from ``jstate`` (its
     TrainState) and one of the port's from ``tstate`` (the same gaussians,
     ``jstate``'s alive slots in order) on ``cam`` (``step_camera``, or any
@@ -123,8 +123,11 @@ def assert_step_matches(jstate, tstate, cam, iteration=7001, sh=3,
     1e-3 ||g_jax||, and the prior's; the densification statistics; and the
     post-Adam params where |g| >= 1e-3 max|g| of their group (the first
     Adam step moves a param by about lr * sign(g), so sign noise on
-    gradients near zero is no fault). JAX's gradient is read off its first
-    moment, (mu' - 0.9 mu) / 0.1. Returns the port's new state."""
+    gradients near zero is no fault). The groups of ``no_grad_keys`` (the
+    ones the render does not reach: intensity, and a static model's t,
+    scaling_t and velocity) must have a zero gradient on both sides. JAX's
+    gradient is read off its first moment, (mu' - 0.9 mu) / 0.1. Returns
+    the port's new state."""
     import jax
     import jax.numpy as jnp
     import torch
@@ -177,8 +180,8 @@ def assert_step_matches(jstate, tstate, cam, iteration=7001, sh=3,
         g = tgrads[k].numpy()
         assert np.isfinite(g).all(), k
         ref = np.linalg.norm(g_jax)
-        if k == "intensity":             # not rendered: no gradient
-            assert ref == 0 and not g.any()
+        if k in no_grad_keys:            # not rendered: no gradient
+            assert ref == 0 and not g.any(), k
             continue
         assert ref > 0, k
         assert np.linalg.norm(g - g_jax) <= 1e-3 * ref, k
