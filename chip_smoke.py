@@ -23,12 +23,20 @@ failing phase raises:
    kernel's checkpoints and the plain version walking each tile from its
    start; the forward kernel's outputs must be the same bit for bit run
    twice, and with and without its checkpoint buffer, and its checkpoints
-   agree with the plain forward's;
+   agree with the plain forward's; then the preprocess kernels against
+   their plain versions (``preprocess_fixtures``): the forward on every
+   field and the backward with seeded cotangents, on the seam scene
+   (SH degree 3, tight rects), again with square rects, SH degree 1 and
+   a scale modifier, as an hfov slice with the colors given and [P, 2]
+   scales with a row stride, on the degenerate fixtures (centres on the
+   camera's axis, with tangents of 1e-12, exactly on the seam, zero
+   quaternions, at the camera) and on the deep tile's scene;
 4. serving path: a seeded 1,000,000-gaussian model of kitti360_nvs_1908's
    shape (SH degree 3, 66x515 halves rendered as one 66x1030 wrap_x
    panorama) served through ``gslidar_tpu_torch.render.render_scene`` over
    4 front/back camera pairs of the procedural Synthetic scene; the
-   forward kernel's launch count must rise once per 360-degree render, and
+   forward compositor's and the preprocess's launch counts must each rise
+   once per 360-degree render, and
    one pair's 360 pass is held against the two-half stitch (see
    ``stitch_vs_360`` for why that comparison counts pixels by their
    distance to a tile edge);
@@ -41,12 +49,18 @@ failing phase raises:
    share of the walked pairs, the batches the blend pass walks and the
    tiles hold) and what each compositor and each forward pass takes at
    its launch (registers, shared memory, spills, resident CTAs per SM,
-   grid);
+   grid); then the preprocess kernels against their plain versions at
+   full size, and the render through them against the render through
+   the plain preprocess (``render_vs_plain_preprocess``:
+   ``measure_tight_rects``' bars, the two renders and their stages timed
+   in turns, each render's idle share and top device ops);
 6. training path (the main path): ``gslidar_tpu_torch.train.training`` for
    6 steps of the same seeded 1M-gaussian model on the Synthetic scene at
    kitti360_nvs_1908's shape (66x515 half panoramas, its lambdas and
    learning rates); each step must launch the forward and the backward
-   kernel exactly once, give a finite loss and finite gradients, and every
+   compositor and the preprocess forward and backward kernels exactly
+   once each (``launch_counts``), give a finite loss and finite
+   gradients, and every
    param group with a gradient and a learning rate, and the prior, must
    move (the loop's depth-visualization renders are counted apart); then
    ``python -m gslidar_tpu_torch.train`` on configs/synthetic_smoke.yaml
@@ -64,11 +78,14 @@ failing phase raises:
    device time of each of its passes with them, as in phase 5), the
    backward kernel against the plain version (median of 3), and the
    device's idle share over 3 steps from ``torch.profiler``; the walk and the compositors' resources as in
-   phase 5;
+   phase 5; the preprocess kernels on the step's own inputs against
+   their plain versions, the backward also on the step's own cotangents,
+   and both timed beside their plain versions (median of 3);
    with the least-time bounds (``gslidar_tpu_torch.microbench.bounds``)
    of the forward kernel on phase 5's 360-degree view and of both kernels
    on this training view, their walked / needed pair ratios, and the
-   pairs the forward's product pass walks;
+   pairs the forward's product pass walks; and of the preprocess
+   forward on phase 5's view and its backward on this step;
 8. gather path: ``python -m gslidar_tpu_torch.microbench.dma_gather``
    driven in-process at the script's shape (a) [1M, 128] f32 by 2,260,992
    ids and at the binning payload's shape (b) [1M, 18] by 2,662,848 ids
@@ -214,13 +231,17 @@ failing phase raises:
 15. the measurement entry points at full width: the forward kernel
    against its plain version on ``gslidar_tpu_torch.bench.build_scene``'s
    1,000,000 gaussians rendered as the bench's 66x1030 wrap_x panorama
-   (16x16 tiles, as serving runs it), and both kernels on one step of
+   (16x16 tiles, as serving runs it), the preprocess kernels and the
+   render through them against the plain versions on that scene at
+   1,000,000 and at 10,000,000 gaussians as in phase 5, and both
+   compositors on one step of
    ``scripts.bench_train_step``'s 1M-gaussian model at 66x515
    (``check_step_kernels``, phase 7's bars); then, the launch counts set
    to 0, ``python -m gslidar_tpu_torch.bench`` in a subprocess at
    1,000,000 and at 10,000,000 gaussians (its last line must be one JSON
    object with ``metric``, ``value`` > 0, ``unit``, ``vs_baseline`` and
-   ``backend``, and it must launch the forward kernel once per render),
+   ``backend``, and it must launch the forward compositor and the
+   preprocess once per render),
    and in this process ``bench_train_step`` at 1M, ``profile_render
    --tiles 16x16 8x32 16x32 32x32 --trace``, ``profile_train_step
    --trace``, ``tile_stats`` and ``measure_tight_rects`` (whose render
@@ -228,9 +249,14 @@ failing phase raises:
    without). It prints renders/s at 1M and 10M, the step's ms and idle
    share, each stage's ms, the per-tile statistics and the bench path's
    launches;
-16. the result: the card's nvidia-smi line, one JSON line of the kernels
-   (kernels 1-2 with their launches on each path), and the last line
-   ``{"ok": true, "device": {...}}``.
+16. the result: the card's nvidia-smi line, one JSON line of the six
+   kernels (the compositors and the preprocess pair with their launches
+   on each path), and the last line ``{"ok": true, "device": {...}}``.
+
+Wherever a phase counts the compositors' launches it counts the
+preprocess kernels' too (``launch_counts``) and holds them to the same
+numbers: one preprocess forward per render, camera, slice, eval pair and
+viewer render, one backward per step and DP camera.
 
 Tolerances, forward kernel vs plain: color, features, normal, alpha and
 final T at atol 1e-4; mean depth and sum w*d^2 at rtol 1e-4 + atol 1e-3;
@@ -257,6 +283,19 @@ took and the pixels whose n_contrib did not flip: T at atol 1e-4; each
 running sum within 1e-4 of its field's largest magnitude. The largest T
 step between two batches of one tile must exceed the T bar, so that a
 checkpoint written to the wrong batch would fail.
+
+Preprocess kernels vs plain (``compare_prep``, ``compare_prep_grads``):
+the forward's float fields (T, xy, depth, normal, color) within 1e-6 of
+each field's largest magnitude; its integer fields (the ceiled radius,
+the rects, the tile count, valid) equal, but on at most 1e-4 of the
+gaussians, each of which must have an argument of one of its integer
+decisions within 1e-3 of where it flips (the plain version's ``edges``:
+the kernel runs the plain version's IEEE operations in its order, but
+atan2f, logf and sqrtf are its own); the backward, given the kernel
+forward's clamp mask on both sides, within 1e-5 of each gradient
+column's largest magnitude, and the same bits run twice. The render
+through the kernels against the render through the plain preprocess at
+``scripts/measure_tight_rects.py``'s bars.
 
 Gather kernel vs plain: bitwise equal (a copy). Op chains vs plain
 (``vpu_ops.check``): float32 mul, fma, select, roll1 and roll8 bit for
@@ -309,6 +348,36 @@ STITCH_MAX_INTERIOR = 0.01    # of the pixels >= MARGIN from every edge
 
 def say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
+
+
+def launch_counts():
+    """The kernel launches counted so far: (compositor forward, compositor
+    backward, preprocess forward, preprocess backward)."""
+    from gslidar_tpu_torch.raster.composite_bwd import composite_backward
+    from gslidar_tpu_torch.raster.composite_fwd import composite_forward
+    from gslidar_tpu_torch.raster.preprocess import preprocess
+    return (composite_forward.launches, composite_backward.launches,
+            preprocess.launches, preprocess.backward_launches)
+
+
+def set_launch_counts(counts=(0, 0, 0, 0)):
+    """Set the four counts of ``launch_counts`` (0 by default)."""
+    from gslidar_tpu_torch.raster.composite_bwd import composite_backward
+    from gslidar_tpu_torch.raster.composite_fwd import composite_forward
+    from gslidar_tpu_torch.raster.preprocess import preprocess
+    (composite_forward.launches, composite_backward.launches,
+     preprocess.launches, preprocess.backward_launches) = counts
+
+
+# one render without a gradient: one forward of the compositor and one of
+# the preprocess (``launch_counts``)
+ONE_RENDER = [1, 0, 1, 0]
+
+
+def launches_text(counts):
+    """The four counts of ``launch_counts`` in words."""
+    return (f"compositor forward {counts[0]}, backward {counts[1]}, "
+            f"preprocess forward {counts[2]}, backward {counts[3]}")
 
 
 class Args(dict):
@@ -534,16 +603,14 @@ def check_step_kernels(phase, label, bwd_args, seed):
     ``bwd_args`` its backward was called with; the launches of this
     comparison are not the run's. Returns (the kinds that failed, the
     forward's and the backward's largest absolute errors)."""
-    from gslidar_tpu_torch.raster.composite_bwd import composite_backward
-    from gslidar_tpu_torch.raster.composite_fwd import composite_forward
-    saved = (composite_forward.launches, composite_backward.launches)
+    saved = launch_counts()
     rows, starts, fwd, _, params8, st, C, S, ckpt = bwd_args
     ok_f, summ_f, _, _ = run_pair(rows, starts, params8, st, C, S)
     ok_b, summ_b = run_bwd_pair(rows, starts, fwd,
                                 random_cotangents(st, C, S, seed,
                                                   rows.device),
                                 params8, st, C, S, ckpt)
-    composite_forward.launches, composite_backward.launches = saved
+    set_launch_counts(saved)
     failed = []
     for kind, ok, summ in (("forward", ok_f, summ_f),
                            ("backward", ok_b, summ_b)):
@@ -553,6 +620,243 @@ def check_step_kernels(phase, label, bwd_args, seed):
         if not ok:
             failed.append(kind)
     return failed, summ_f["raw_max_abs_err"], summ_b["raw_max_abs_err"]
+
+
+# ------------------------------------------------------ preprocess checks
+PREP_RTOL = 1e-6          # preprocess forward kernel vs plain: each float
+                          # field, of its largest magnitude
+PREP_BWD_RTOL = 1e-5      # backward: each gradient column, of its largest
+PREP_MAX_DIFF = 1e-4      # the share of gaussians whose integer fields may
+                          # differ, each only where one of its decisions'
+PREP_EDGE = 1e-3          # arguments lies this close to where it flips
+PREP_FLOATS = ("T", "xy", "depth", "normal", "color")
+PREP_INTS = ("radius", "rect_min", "rect_max", "tiles_touched", "valid")
+
+
+def prep_inputs(means, scales, quats, opacity, shs, mask, viewmat, campos,
+                sh_degree, scale_factor, settings, scale_modifier=1.0,
+                colors=None, angle_bounds=None, cull_bounds=None):
+    """The preprocess pass's arguments as one dict (``run_prep_pair``)."""
+    return dict(means=means, scales=scales, quats=quats, opacity=opacity,
+                shs=None if colors is not None else shs, mask=mask,
+                viewmat=viewmat, campos=campos, colors=colors,
+                sh_degree=sh_degree, scale_factor=scale_factor,
+                settings=settings, scale_modifier=scale_modifier,
+                angle_bounds=angle_bounds, cull_bounds=cull_bounds)
+
+
+def compare_prep(kern, k_clamped, plain, p_clamped, edges):
+    """Preprocess forward kernel vs plain: each float field within
+    PREP_RTOL of its largest magnitude; the integer fields (the ceiled
+    radius, the rects, the tile count, valid) equal but on at most
+    PREP_MAX_DIFF of the gaussians, each of which has an argument of its
+    integer decisions within PREP_EDGE of where it flips (``edges``, the
+    plain version's); the SH clamp masks' differing entries counted.
+    Returns (ok, summary dict)."""
+    import torch
+    rel, raw = {}, 0.0
+    for f in PREP_FLOATS:
+        a, b = getattr(kern, f), getattr(plain, f)
+        d = float((a - b).abs().max()) if a.numel() else 0.0
+        rel[f] = d / max(float(b.abs().max()) if b.numel() else 0.0, 1e-30)
+        raw = max(raw, d)
+    P = kern.valid.shape[0]
+    diff = torch.zeros(P, dtype=torch.bool, device=kern.valid.device)
+    by_field = {}
+    for f in PREP_INTS:
+        d = getattr(kern, f) != getattr(plain, f)
+        d = d.reshape(P, -1).any(1)
+        by_field[f] = int(d.sum())
+        diff |= d
+    n_diff = int(diff.sum())
+    edge = torch.stack(edges).amin(0)[diff]
+    far = float(edge.max()) if n_diff else 0.0
+    finite = all(bool(torch.isfinite(getattr(kern, f)).all())
+                 for f in (*PREP_FLOATS, "radius"))
+    ok = (finite and all(v <= PREP_RTOL for v in rel.values())
+          and n_diff <= PREP_MAX_DIFF * P and far <= PREP_EDGE)
+    return ok, dict(
+        gaussians=P, max_rel_err={k: float(f"{v:.3g}")
+                                  for k, v in rel.items()},
+        integer_fields_differ=by_field, gaussians_differing=n_diff,
+        their_distance_to_an_edge=sorted(float(f"{x:.3g}")
+                                         for x in edge.tolist())[-8:],
+        clamp_entries_differ=(0 if k_clamped is None
+                              else int((k_clamped != p_clamped).sum())),
+        valid=int(kern.valid.sum()), finite=finite, raw_max_abs_err=raw)
+
+
+def run_prep_pair(pin, seed):
+    """The preprocess kernels against their plain versions on the
+    arguments ``pin`` (``prep_inputs``): the forward on every field
+    (``compare_prep``), then the backward with seeded N(0, 1) cotangents
+    of T and color, both versions given the kernel forward's clamp mask,
+    each gradient column within PREP_BWD_RTOL of its largest magnitude and
+    the kernel's repeating bit for bit. Their launches are not counted.
+    Returns (ok, forward summary, backward summary)."""
+    import torch
+    from gslidar_tpu_torch.raster import preprocess as pp
+    saved = launch_counts()
+    opts = pp._Options(pin["sh_degree"], pin["scale_factor"],
+                       pin["settings"], pin["scale_modifier"],
+                       pin["angle_bounds"], pin["cull_bounds"])
+    head = (pin["means"], pin["scales"], pin["quats"], pin["opacity"],
+            pin["shs"])
+    view = (pin["viewmat"], pin["campos"])
+    edges = []
+    with torch.no_grad():
+        kern, k_cl = pp._preprocess_kernel(*head, pin["colors"], pin["mask"],
+                                           *view, opts)
+        plain, p_cl = pp._preprocess_plain(
+            *head, pin["mask"], *view, opts.sh_degree, opts.scale_factor,
+            opts.settings, opts.scale_modifier, pin["colors"],
+            opts.angle_bounds, opts.cull_bounds, edges=edges)
+        torch.cuda.synchronize()
+        ok_f, summ_f = compare_prep(kern, k_cl, plain, p_cl, edges)
+        del plain, edges
+        P, C = kern.T.shape[0], kern.color.shape[1]
+        g = torch.Generator(device=kern.T.device).manual_seed(seed)
+        dT = torch.randn(P, 3, 3, generator=g, device=kern.T.device)
+        dc = torch.randn(P, C, generator=g, device=kern.T.device)
+        bwd = (*head[:3], pin["shs"], *view, k_cl, dT, dc, opts)
+        kb = pp._preprocess_backward_kernel(*bwd)
+        again = pp._preprocess_backward_kernel(*bwd)
+        pb = pp.preprocess_backward_reference(
+            *head[:3], pin["shs"], *view, opts.sh_degree, k_cl, dT, dc,
+            opts.scale_modifier)
+        torch.cuda.synchronize()
+    set_launch_counts(saved)
+    ok_b, summ_b = compare_prep_grads(kb, pb)
+    repeats = all(a is None or torch.equal(a, b) for a, b in zip(kb, again))
+    summ_b["repeats_bitwise"] = repeats
+    return ok_f and ok_b and repeats, summ_f, summ_b
+
+
+def compare_prep_grads(kern, plain):
+    """Preprocess backward kernel vs plain, (d means, d scales, d quats,
+    d SH or None) each: every gradient column within PREP_BWD_RTOL of its
+    largest magnitude, and finite. Returns (ok, summary dict)."""
+    import torch
+    cols, raw = {}, 0.0
+    for name, a, b in zip(("means", "scales", "quats", "shs"), kern, plain):
+        if b is None:
+            continue
+        a, b = a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1)
+        cols[name] = float(((a - b).abs().amax(0)
+                            / b.abs().amax(0).clamp_min(1e-30)).max())
+        raw = max(raw, float((a - b).abs().max()))
+    finite = all(bool(torch.isfinite(a).all()) for a in kern
+                 if a is not None)
+    ok = finite and all(v <= PREP_BWD_RTOL for v in cols.values())
+    return ok, dict(max_rel_err_per_column={k: float(f"{v:.3g}")
+                                            for k, v in cols.items()},
+                    finite=finite, raw_max_abs_err=raw)
+
+
+def say_prep_pair(phase, label, pin, seed):
+    """``run_prep_pair`` on ``pin``, its two summaries printed. Returns
+    (ok, the forward's and the backward's largest absolute errors)."""
+    ok, summ_f, summ_b = run_prep_pair(pin, seed)
+    say(phase, f"preprocess kernels vs plain on {label}: "
+               f"{'ok' if ok else 'FAIL'} forward {json.dumps(summ_f)} | "
+               f"backward {json.dumps(summ_b)}")
+    return ok, summ_f["raw_max_abs_err"], summ_b["raw_max_abs_err"]
+
+
+def render_vs_plain_preprocess(phase, label, rin, settings, smi, reps=5):
+    """One 360-degree render (``rasterize`` under no_grad on ``rin``, its
+    arguments before the settings) through the preprocess kernel against
+    the same render through the plain preprocess, at
+    ``measure_tight_rects``' bars (the rects may differ at a floor's edge,
+    which only moves where a saturated tile's walk stops); then the two
+    renders and their stages (the preprocess kernel and its plain
+    version, the binning, the forward compositor) timed in turns by CUDA
+    events (median of ``reps``), and each render's device idle share and
+    its top device ops over 3 renders (``torch.profiler``). Launches are
+    not counted. Returns (ok, the median ms by stage)."""
+    import torch
+    import gslidar_tpu_torch.raster.rasterize as rz
+    from gslidar_tpu_torch.microbench.timing import time_ms
+    from gslidar_tpu_torch.raster import preprocess as pp
+    from gslidar_tpu_torch.raster.binning import bin_gaussians
+    from gslidar_tpu_torch.raster.composite_fwd import (composite_forward,
+                                                        make_params,
+                                                        pack_payload)
+    from gslidar_tpu_torch.scripts.measure_tight_rects import (
+        MEDIAN_DEPTH_FLIP, over_bars, render_differences)
+    saved = launch_counts()
+    (means, scales, rots, opacity, shs, feats, mask, viewmat, campos, bg,
+     deg, sf) = rin
+    pargs = (means, scales, rots, opacity, shs, mask, viewmat, campos, deg,
+             sf, settings)
+
+    def render():
+        with torch.no_grad():
+            return rz.rasterize(*rin, settings)
+
+    def render_plain():
+        rz.preprocess = pp.preprocess_reference
+        try:
+            return render()
+        finally:
+            rz.preprocess = pp.preprocess
+
+    diffs, flips, n_open = render_differences(render(), render_plain())
+    over = over_bars(diffs)
+    ok = not over and flips < MEDIAN_DEPTH_FLIP
+    say(phase, f"{label}: the render through the preprocess kernel vs "
+               f"through the plain preprocess ({n_open} of "
+               f"{settings.height * settings.width} pixels open): "
+               f"{'ok' if ok else 'FAIL'} " + ", ".join(
+                   f"{k} bit-identical" if same else
+                   f"{k} max |d| {o:.3g} open, {t:.3g} saturated"
+                   for k, (same, o, t) in diffs.items())
+               + f"; median depth > 1e-3 apart on {flips:.5f} of the "
+                 f"pixels; beyond the bars {over}")
+    with torch.no_grad():
+        prep = pp.preprocess(*pargs)
+        b = bin_gaussians(prep.rect_min, prep.rect_max, prep.depth,
+                          prep.tiles_touched, sf, settings,
+                          payload=pack_payload(prep, opacity, feats))
+        rows, starts = b.data_rows.contiguous(), b.tile_starts
+        params8 = make_params(sf, settings)
+        C, S = prep.color.shape[1], feats.shape[1]
+        stages = {
+            "render": render, "render with the plain preprocess":
+                render_plain,
+            "preprocess kernel": lambda: pp.preprocess(*pargs),
+            "plain preprocess": lambda: pp.preprocess_reference(*pargs),
+            "binning": lambda: bin_gaussians(
+                prep.rect_min, prep.rect_max, prep.depth,
+                prep.tiles_touched, sf, settings,
+                payload=pack_payload(prep, opacity, feats)),
+            "compositor": lambda: composite_forward(rows, starts, params8,
+                                                    settings, C, S)}
+        order = ["render", "render with the plain preprocess",
+                 "render with the plain preprocess", "render",
+                 "preprocess kernel", "plain preprocess",
+                 "plain preprocess", "preprocess kernel", "binning",
+                 "compositor"]
+        for fn in stages.values():                 # warm-up
+            fn()
+        ms = {k: [] for k in stages}
+        for _ in range(reps):
+            for k in order:
+                ms[k].append(time_ms(stages[k], means.device))
+        med = {k: statistics.median(v) for k, v in ms.items()}
+        idle = {k: device_idle_share(stages[k], 3)
+                for k in ("render", "render with the plain preprocess")}
+    del prep, b, rows
+    set_launch_counts(saved)
+    say(phase, f"{label} on {smi}, CUDA events, median of {reps} in turns: "
+               + ", ".join(f"{k} {v:.3f} ms" for k, v in med.items()))
+    for k, (share, busy, wall, top) in idle.items():
+        say(phase, f"{label}, {k}: torch.profiler over 3 renders: device "
+                   f"busy {busy:.3f} ms of {wall:.3f} ms per render, idle "
+                   f"share {share:.4f} | by device time per render: "
+                   + ", ".join(f"{n[:60]} {v:.3f} ms" for n, v in top))
+        med[f"idle share, {k}"] = share
+    return ok, med
 
 
 class Stages:
@@ -627,6 +931,26 @@ def seam_scene(device, n=12000):
              feats=rng.normal(size=(n, 4)))
     return {k: torch.as_tensor(v, dtype=torch.float32, device=device)
             for k, v in t.items()}
+
+
+def degenerate_scene(device, n=512):
+    """seam_scene's splats with fixtures at the preprocess pass's guards:
+    centres on the camera's y axis (x = z = 0, the atan2(0, 0) guard),
+    there again with tangents of 1e-12 (every sample guarded too), exactly
+    on the +-pi seam (x = +0 and -0, z < 0), zero quaternions, and centres
+    at the camera itself (range 1e-12, culled)."""
+    import torch
+    sc = seam_scene(device, n)
+    y = torch.linspace(-5.0, 5.0, 32, device=device)
+    zero = torch.zeros(32, device=device)
+    sc["means"][0:32] = torch.stack([zero, y, zero], 1)
+    sc["means"][32:64] = torch.stack([zero, y, zero], 1)
+    sc["scales"][32:64] = 1e-12
+    sc["means"][64:96] = torch.stack([zero, y, zero - 10.0], 1)
+    sc["means"][80:96, 0] = -0.0
+    sc["quats"][96:128] = 0.0
+    sc["means"][128:160] = 0.0
+    return sc
 
 
 def edge_on_rows(device):
@@ -779,14 +1103,75 @@ def phase_kernel_vs_plain(device):
         for name, (ok, summ) in res.items():
             say(3, f"{kind} kernel vs plain {name}: "
                    f"{'ok' if ok else 'FAIL'} {json.dumps(summ)}")
-    if not all(ok for ok, _ in [*results.values(), *bwd.values()]):
+    prep_ok, prep_f, prep_b = preprocess_fixtures(device, base)
+    if not all(ok for ok, _ in [*results.values(), *bwd.values()]) or \
+            not prep_ok:
         raise RuntimeError("a kernel disagrees with its plain version")
     # the edge-on splat's 1e-36 tangent makes its normal's 1/|u x v| reach
     # 1e15 and its T gradient 1e14 (finite, as in the Pallas kernel): its
     # absolute error is left out of the kernels line, its relative one not
     return (max(s["raw_max_abs_err"] for _, s in results.values()),
             max(s["raw_max_abs_err"] for k, (_, s) in bwd.items()
-                if k != "edge_on"))
+                if k != "edge_on"), prep_f, prep_b)
+
+
+def preprocess_fixtures(device, base):
+    """The preprocess kernels against their plain versions
+    (``run_prep_pair``) on seeded scenes that take each option the kernels
+    cover: the seam scene in ``base`` (the 66x1030 wrap_x panorama; SH
+    degree 3, tight rects), again with square rects, SH degree 1 and a
+    scale modifier of 0.7, as an hfov slice (pixel window and cull window
+    apart, not circular) with the colors given and the scales a [P, 2]
+    view with a row stride, the degenerate fixtures, and the deep tile's
+    scene (a 30x130 panorama). Returns (ok, the forward's and the
+    backward's largest absolute errors over the scenes, the degenerate
+    fixtures' backward left out: its 1/1e-12 terms reach 1e12)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from gslidar_tpu_torch.raster import scenes
+    from gslidar_tpu_torch.raster.settings import RasterSettings
+    sc = seam_scene(device)
+    eye, zero = torch.eye(4, device=device), torch.zeros(3, device=device)
+    every = torch.ones_like(sc["opac"], dtype=torch.bool)
+    head = (sc["means"], sc["scales"], sc["quats"], sc["opac"], sc["shs"],
+            every, eye, zero)
+    vmin, vmax, hmin, hmax = base.angle_bounds
+    half = 0.5 * (hmax - hmin) / 2
+    sub = dataclasses.replace(base, width=base.width // 2, wrap_x=False)
+    colors = torch.as_tensor(np.random.default_rng(SEED + 41).uniform(
+        0, 1, (sc["means"].shape[0], 4)).astype(np.float32), device=device)
+    dg = degenerate_scene(device)
+    dt = {k: torch.as_tensor(v, device=device) for k, v in
+          scenes.deep_tile_scene(np.random.default_rng(7)).items()}
+    cases = {
+        "the seam scene": prep_inputs(*head, SH_DEGREE, 1.0, base),
+        "the seam scene, square rects, SH degree 1, scale modifier 0.7":
+            prep_inputs(*head, 1, 1.0, dataclasses.replace(
+                base, tight_rects=False), scale_modifier=0.7),
+        "an hfov slice of the seam scene, colors given, [P, 2] scales":
+            prep_inputs(sc["means"], sc["scales"][:, :2], *head[2:],
+                        SH_DEGREE, 1.0, sub, colors=colors,
+                        angle_bounds=(vmin, vmax, -half, half),
+                        cull_bounds=(vmin, vmax, hmin + half,
+                                     hmax + half)),
+        "the degenerate fixtures": prep_inputs(
+            dg["means"], dg["scales"], dg["quats"], dg["opac"], dg["shs"],
+            every[:dg["means"].shape[0]], eye, zero, SH_DEGREE, 1.0, base),
+        "the deep tile's scene": prep_inputs(
+            dt["means"], dt["scales"], dt["quats"], dt["opac"], dt["shs"],
+            dt["mask"], dt["viewmat"], dt["campos"], SH_DEGREE, 1.0,
+            RasterSettings(height=30, width=130, vfov=(-20.0, 20.0),
+                           hfov=(-60.0, 60.0), num_extra_features=2)),
+    }
+    oks, err_f, err_b = [], 0.0, 0.0
+    for i, (label, pin) in enumerate(cases.items()):
+        ok, ef, eb = say_prep_pair(3, label, pin, SEED + 50 + i)
+        oks.append(ok)
+        err_f = max(err_f, ef)
+        if label != "the degenerate fixtures":
+            err_b = max(err_b, eb)
+    return all(oks), err_f, err_b
 
 
 # ---------------------------------------------------------------- phase 4
@@ -834,7 +1219,6 @@ def phase_main_path(device):
     import numpy as np
     import torch
     from gslidar_tpu_torch.models.gaussians import params_from_numpy
-    from gslidar_tpu_torch.raster.composite_fwd import composite_forward
     from gslidar_tpu_torch.render import build_scene, render_scene
 
     args = scene_args()
@@ -854,12 +1238,12 @@ def phase_main_path(device):
         device=device)
     setup_s = time.perf_counter() - t0
 
-    composite_forward.launches = 0
+    set_launch_counts()
     t0 = time.perf_counter()
     results = render_scene(args, params, alive, prior, cams, device)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = composite_forward.launches
+    launches = launch_counts()
 
     h, w = HW
     sf = float(args.scale_factor)
@@ -871,8 +1255,8 @@ def phase_main_path(device):
         if r["depth"].shape != (3, h, 2 * w) or \
                 r["raydrop"].shape != (1, h, 2 * w):
             raise RuntimeError(f"bad shapes {r['depth'].shape}")
-    if launches != len(results):
-        raise RuntimeError(f"{launches} kernel launches for "
+    if launches != (len(results), 0, len(results), 0):
+        raise RuntimeError(f"kernel launches {launches_text(launches)} for "
                            f"{len(results)} 360-degree renders")
     gt = np.concatenate([r["gt_depth"][0] for r in results])
     pred = np.concatenate([r["depth"][1] for r in results])
@@ -880,7 +1264,7 @@ def phase_main_path(device):
     med_err_m = float(np.median(np.abs(pred[hit] - gt[hit]))) / sf
     say(4, f"serving path: {len(results)} 360-degree renders of "
            f"{NUM_GAUSSIANS} gaussians at {h}x{2 * w} | kernel launches "
-           f"{launches} | instances per render "
+           f"{launches_text(launches)} | instances per render "
            f"{[r['num_pairs'] for r in results]} | points "
            f"{[len(r['points']) for r in results]} | median |range - GT| "
            f"{med_err_m:.3f} m over {int(hit.sum())} GT pixels (untrained "
@@ -1050,7 +1434,25 @@ def phase_full_size(args, params, alive, prior, cam, smi):
            f"which preprocess {med['preprocess']:.3f} ms and binning "
            f"{med['binning']:.3f} ms (median of {len(ms['render'])})")
     say_passes(5, smi, passes, med["kernel"])
-    return summ["raw_max_abs_err"], med, work
+
+    # the preprocess kernels at full size, and the render through them
+    # against the render through the plain preprocess
+    with torch.no_grad():
+        rin = (means, G.get_scaling(params), params["rotation"], opacity,
+               G.get_features(params), feats, mask, batch.viewmat,
+               batch.campos, torch.tensor([0.0, 0.0, 0.0, 1.0],
+                                          device=device), SH_DEGREE, sf)
+    ok_p, err_pf, err_pb = say_prep_pair(
+        5, f"the 360-degree view ({NUM_GAUSSIANS} gaussians)",
+        prep_inputs(*rin[:5], *rin[6:9], SH_DEGREE, sf, s), SEED + 60)
+    ok_r, med_r = render_vs_plain_preprocess(
+        5, f"the 360-degree view of {NUM_GAUSSIANS} gaussians", rin, s, smi)
+    if not (ok_p and ok_r):
+        raise RuntimeError("the preprocess kernels or the render through "
+                           "them disagree with the plain versions at full "
+                           "size")
+    return summ["raw_max_abs_err"], med, work, dict(
+        err_f=err_pf, err_b=err_pb, med=med_r, gaussians=NUM_GAUSSIANS)
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1066,29 +1468,24 @@ def train_args(model_path, iterations, overrides=()):
 
 
 class StepLaunches:
-    """The compositors' launches of each training step: ``step()`` from
-    the step's ``on_step`` hook, ``skip()`` from every event hook, whose
-    launches (the loop's depth visualizations) go to ``other`` and not to
-    the next step. ``per_step`` lists (forward, backward) per step."""
+    """The kernels' launches of each training step (``launch_counts``):
+    ``step()`` from the step's ``on_step`` hook, ``skip()`` from every
+    event hook, whose launches (the loop's depth visualizations) go to
+    ``other`` and not to the next step. ``per_step`` lists (compositor
+    forward, backward, preprocess forward, backward) per step."""
 
     def __init__(self):
-        self.last = self.now()
+        self.last = launch_counts()
         self.per_step = []
-        self.other = (0, 0)
-
-    @staticmethod
-    def now():
-        from gslidar_tpu_torch.raster.composite_bwd import composite_backward
-        from gslidar_tpu_torch.raster.composite_fwd import composite_forward
-        return composite_forward.launches, composite_backward.launches
+        self.other = (0,) * len(self.last)
 
     def step(self):
-        now = self.now()
-        self.per_step.append((now[0] - self.last[0], now[1] - self.last[1]))
+        now = launch_counts()
+        self.per_step.append(tuple(n - l for n, l in zip(now, self.last)))
         self.last = now
 
     def skip(self):
-        now = self.now()
+        now = launch_counts()
         self.other = tuple(o + n - l for o, n, l in
                            zip(self.other, now, self.last))
         self.last = now
@@ -1105,8 +1502,6 @@ def phase_train(device, init_params):
     import torch
     from gslidar_tpu_torch.models.gaussians import PARAM_KEYS
     from gslidar_tpu_torch.models.optim import group_lrs
-    from gslidar_tpu_torch.raster.composite_bwd import composite_backward
-    from gslidar_tpu_torch.raster.composite_fwd import composite_forward
     from gslidar_tpu_torch.train import training
 
     args = train_args(os.path.join(REPO, "build", "chip_smoke_train"),
@@ -1123,8 +1518,7 @@ def phase_train(device, init_params):
             finite = finite and bool(torch.isfinite(g).all())
             grad_seen[k] = grad_seen.get(k, False) or bool(g.any())
 
-    composite_forward.launches = 0
-    composite_backward.launches = 0
+    set_launch_counts()
     steps = StepLaunches()
     t0 = time.perf_counter()
     state, scene, losses = training(args, device, init_params=init_params,
@@ -1132,7 +1526,7 @@ def phase_train(device, init_params):
                                     on_event=lambda *a: steps.skip())
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = (composite_forward.launches, composite_backward.launches)
+    launches = launch_counts()
 
     per_step = steps.per_step
     lrs = group_lrs(args, 1)
@@ -1143,9 +1537,10 @@ def phase_train(device, init_params):
     still = {k: "zero gradient" if not grad_seen[k] else "lr 0"
              for k in PARAM_KEYS if not expect[k]}
     say(6, f"training path: {len(losses)} steps of {NUM_GAUSSIANS} gaussians "
-           f"at {HW[0]}x{HW[1]} | launches forward {launches[0]}, backward "
-           f"{launches[1]}, per step {per_step} (and {steps.other[0]} "
-           f"forwards of the loop's depth visualizations) | instances per "
+           f"at {HW[0]}x{HW[1]} | launches {launches_text(launches)}, per "
+           f"step {per_step} (and {steps.other[0]} compositor and "
+           f"{steps.other[2]} preprocess forwards of the loop's depth "
+           f"visualizations) | instances per "
            f"step {counts} | loss {[round(x, 5) for x in losses]}"
            f" | gradients finite {finite} | moved "
            f"{sorted(k for k in moved if moved[k])}, prior {prior_moved}; "
@@ -1153,7 +1548,7 @@ def phase_train(device, init_params):
     # SH degree 0 until sh_increase_interval: f_rest has no gradient yet
     core = ("xyz", "f_dc", "opacity", "scaling", "rotation")
     shutil.rmtree(args.model_path, ignore_errors=True)   # its checkpoint
-    if (len(losses) != TRAIN_STEPS or any(d != (1, 1) for d in per_step)
+    if (len(losses) != TRAIN_STEPS or any(d != (1, 1, 1, 1) for d in per_step)
             or not all(math.isfinite(x) for x in losses) or not finite
             or moved != expect or not prior_moved
             or not all(expect[k] for k in core)):
@@ -1242,8 +1637,6 @@ def phase_train_densify(device, init_params, smi):
     import gslidar_tpu_torch.train as T
     from gslidar_tpu_torch.config import Config
     from gslidar_tpu_torch.engine.checkpoint import load_train_state
-    from gslidar_tpu_torch.raster.composite_bwd import composite_backward
-    from gslidar_tpu_torch.raster.composite_fwd import composite_forward
     from gslidar_tpu_torch.render import gaussian_config
 
     run = os.path.join(REPO, "build", "chip_smoke_densify")
@@ -1333,8 +1726,7 @@ def phase_train_densify(device, init_params, smi):
     torch.cuda.reset_peak_memory_stats()
     co.composite_backward, T.make_densify_fn = bwd_keep, make_timed
     try:
-        composite_forward.launches = 0
-        composite_backward.launches = 0
+        set_launch_counts()
         steps = StepLaunches()
         mark()
         t0 = time.perf_counter()
@@ -1343,7 +1735,7 @@ def phase_train_densify(device, init_params, smi):
                                           on_step=on_step, on_event=on_event)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-        launches = (composite_forward.launches, composite_backward.launches)
+        launches = launch_counts()
     finally:
         co.composite_backward, T.make_densify_fn = bwd_orig, make_orig
     per_step = steps.per_step
@@ -1363,8 +1755,8 @@ def phase_train_densify(device, init_params, smi):
     say(10, f"training with densification: {len(losses)} steps from "
             f"{NUM_GAUSSIANS} gaussians at {HW[0]}x{HW[1]} ("
             + ", ".join(DENSIFY_RUN) + f") | events {fired} | launches "
-            f"forward {launches[0]}, backward {launches[1]}, per step "
-            f"{per_step} (and {steps.other[0]} forwards of the depth "
+            f"{launches_text(launches)}, per step {per_step} (and "
+            f"{steps.other[0]} compositor forwards of the depth "
             f"visualizations) | gaussians per step "
             f"{[rec['n'][i] for i in sorted(rec['n'])]} | loss "
             f"{[round(x, 5) for x in losses]} | {wall_s:.2f} s")
@@ -1398,8 +1790,7 @@ def phase_train_densify(device, init_params, smi):
     del loaded, held
     resume = train_args(run, RESUME_ITERATIONS, DENSIFY_RUN)
     Config.update(resume, "start_checkpoint", path12)
-    composite_forward.launches = 0
-    composite_backward.launches = 0
+    set_launch_counts()
     steps = StepLaunches()
 
     def on_resume_event(iteration, name, state, info):
@@ -1433,7 +1824,7 @@ def phase_train_densify(device, init_params, smi):
              for it in (12, DENSIFY_ITERATIONS)}
     shutil.rmtree(run, ignore_errors=True)
     if (wrong or bad or len(losses) != DENSIFY_ITERATIONS
-            or any(d != (1, 1) for d in per_step + steps.per_step)
+            or any(d != (1, 1, 1, 1) for d in per_step + steps.per_step)
             or 8 not in rec["densify"] or "reset" not in rec["events"][6]
             or "upscale" not in rec["events"][10]
             or rec.get("kernels_checked") != 9
@@ -1527,7 +1918,6 @@ def phase_eval_refine(args, params, alive, prior, smi):
     from gslidar_tpu_torch.config import load_run_config
     from gslidar_tpu_torch.engine.refine import (_load_unet, refine,
                                                  refine_test)
-    from gslidar_tpu_torch.raster.composite_fwd import composite_forward
     from gslidar_tpu_torch.render import (build_scene, gaussian_config,
                                           raster_settings)
     from gslidar_tpu_torch.utils.lpips import load_lpips
@@ -1574,7 +1964,7 @@ def phase_eval_refine(args, params, alive, prior, smi):
     os.environ.pop("GSLIDAR_LPIPS_WEIGHTS", None)
     torch.cuda.reset_peak_memory_stats()
     try:
-        composite_forward.launches = 0
+        set_launch_counts()
         t0 = time.perf_counter()
         results = E.complete_eval(
             0, eargs, scene, state, SH_DEGREE, ev, is_final=True,
@@ -1582,7 +1972,7 @@ def phase_eval_refine(args, params, alive, prior, smi):
             eval_render360=clock.timed("render", ev360, new_pair=True))
         torch.cuda.synchronize()
         eval_s = time.perf_counter() - t0
-        launches = composite_forward.launches
+        launches = launch_counts()
         peak = {"eval": torch.cuda.max_memory_allocated() / 2 ** 30}
     finally:
         (E._depth3, E._np, M.chamfer_distance, co.composite_forward,
@@ -1592,7 +1982,7 @@ def phase_eval_refine(args, params, alive, prior, smi):
     # one eval render's forward kernel against its plain version
     rows, starts, params8, st, C, S = capture.pop("fwd")[:6]
     ok_f, summ_f, _, _ = run_pair(rows, starts, params8, st, C, S)
-    composite_forward.launches = launches
+    set_launch_counts(launches)
     say(11, f"forward kernel vs plain on the first eval render "
             f"({rows.shape[0]} instances, {st.height}x{st.width}): "
             f"{'ok' if ok_f else 'FAIL'} {json.dumps(summ_f)}")
@@ -1617,7 +2007,7 @@ def phase_eval_refine(args, params, alive, prior, smi):
     times = clock.summary()
     say(11, f"complete_eval on {smi}: {sum(n_pairs)} pairs ({n_pairs[0]} "
             f"test, {n_pairs[1]} train) of {NUM_GAUSSIANS} gaussians at "
-            f"{h}x{2 * w}, {eval_s:.2f} s | forward launches {launches} | "
+            f"{h}x{2 * w}, {eval_s:.2f} s | launches {launches_text(launches)} | "
             f"ray_drop_datasets {saved_npy} | metrics finite, LPIPS null: "
             f"{finite} | test {json.dumps(parsed['test'])}")
     say(11, "per pair, ms (host clock, synchronised): " + " | ".join(
@@ -1700,7 +2090,8 @@ def phase_eval_refine(args, params, alive, prior, smi):
             f"{json.dumps(rt['test'])} | peak memory (GiB) "
             f"{ {k: round(v, 2) for k, v in peak.items()} }")
     shutil.rmtree(run, ignore_errors=True)
-    if not (ok_f and launches == sum(n_pairs) and n_pairs == (2, 6)
+    n = sum(n_pairs)
+    if not (ok_f and launches == (n, 0, n, 0) and n_pairs == (2, 6)
             and finite and lp_ok and refine_ok and u_err <= 1e-4
             and sorted(results) == ["test", "train"]
             and saved_npy == {"gt": 8, "render_train": 6, "render_test": 2}
@@ -1737,7 +2128,7 @@ def _free_port():
 def viewer_client(port, steps, out, paused):
     """The viewer's client, on a thread of its own: pause the loop (it
     then waits in its next ``checkin``), a full, a preview and a second
-    full ``/render``, each timed and counted in forward launches (the
+    full ``/render``, each timed and its launches counted (the
     first waits for the rest of the loop's iteration, which holds the
     viewer's lock), resume, read ``/stats``. The launches of the renders
     are moved off the next step (``steps.skip``) while the loop is
@@ -1745,7 +2136,6 @@ def viewer_client(port, steps, out, paused):
     import io
     import urllib.request
     from PIL import Image
-    from gslidar_tpu_torch.raster.composite_fwd import composite_forward
 
     def get(path, method="GET"):
         req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
@@ -1757,12 +2147,13 @@ def viewer_client(port, steps, out, paused):
         paused.set()
         for name, q in (("full", ""), ("preview", "&preview=1"),
                         ("full again", "")):
-            n0 = composite_forward.launches
+            n0 = launch_counts()
             t0 = time.perf_counter()
             png = get("/render?mode=orbit&az=30&el=20&dist=25&frame=8" + q)
             out[name] = dict(ms=(time.perf_counter() - t0) * 1e3,
                              size=Image.open(io.BytesIO(png)).size,
-                             launches=composite_forward.launches - n0)
+                             launches=[n - m for n, m in
+                                       zip(launch_counts(), n0)])
         steps.skip()
         out["resumed"] = not json.loads(get("/pause", "POST"))["paused"]
         out["stats"] = json.loads(get("/stats"))
@@ -1797,8 +2188,6 @@ def phase_opv2v(smi, device, tree_kw=None, overrides=()):
     from gslidar_tpu_torch.data.preprocess import opv2v_to_gs
     from gslidar_tpu_torch.engine.checkpoint import load_train_state
     from gslidar_tpu_torch.ops.knn import mean_sq_dist_knn3_brute
-    from gslidar_tpu_torch.raster.composite_bwd import composite_backward
-    from gslidar_tpu_torch.raster.composite_fwd import composite_forward
 
     root = os.path.join(REPO, "build", "chip_smoke_opv2v")
     shutil.rmtree(root, ignore_errors=True)
@@ -1914,8 +2303,7 @@ def phase_opv2v(smi, device, tree_kw=None, overrides=()):
         timed("scene_s", saved_fns[0]), create_keep,
         timed("knn_s", saved_fns[2]), make_step, make_densify, bwd_keep)
     try:
-        composite_forward.launches = 0
-        composite_backward.launches = 0
+        set_launch_counts()
         steps = StepLaunches()
         stages.start()
         t0 = time.perf_counter()
@@ -1923,7 +2311,7 @@ def phase_opv2v(smi, device, tree_kw=None, overrides=()):
                                           on_event=on_event)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-        launches = (composite_forward.launches, composite_backward.launches)
+        launches = launch_counts()
     finally:
         (T.build_scene, T.create_from_pcd, G.mean_sq_dist_knn3,
          T.make_train_step, T.make_densify_fn,
@@ -1954,8 +2342,8 @@ def phase_opv2v(smi, device, tree_kw=None, overrides=()):
             f" s")
     say(12, f"training opv2v_dynamic_2: {len(losses)} steps ("
             + ", ".join(OPV2V_RUN) + f") | events {fired} | launches "
-            f"forward {launches[0]}, backward {launches[1]}, per step "
-            f"{per_step} (and {steps.other[0]} forwards of the depth "
+            f"{launches_text(launches)}, per step {per_step} (and "
+            f"{steps.other[0]} compositor forwards of the depth "
             f"visualizations, the viewer and the final eval) | time shift "
             f"at {shifted} | gaussians per step "
             f"{[rec['n'][i] for i in sorted(rec['n'])]} | instances per "
@@ -2028,7 +2416,7 @@ def phase_opv2v(smi, device, tree_kw=None, overrides=()):
         "full", "preview", "full again"))
     if (wrong or bad or len(losses) != OPV2V_ITERATIONS
             or n_points != args.num_pts or (n_train, n_test) != (48, 3)
-            or any(d != (1, 1) for d in per_step)
+            or any(d != (1, 1, 1, 1) for d in per_step)
             or dens != [8, 12] or not shifted
             or not all(rec["moved"].get(k) for k in (
                 "velocity", "t", "scaling_t"))
@@ -2037,10 +2425,10 @@ def phase_opv2v(smi, device, tree_kw=None, overrides=()):
             or sorted(results) != ["test", "train"]
             or "error" in client or not client.get("paused")
             or not client.get("resumed")
-            or any(r.get("size") != (w, h) or r.get("launches") != 1
+            or any(r.get("size") != (w, h) or r.get("launches") != ONE_RENDER
                    for r in (full, again))
             or prev.get("size") != (max(w // 2, 8), max(h // 2, 8))
-            or prev.get("launches") != 1
+            or prev.get("launches") != ONE_RENDER
             or not client.get("stats", {}).get("rays_per_sec")):
         raise RuntimeError(f"the dynamic OPV2V run failed its checks: events "
                            f"off the schedule {wrong}, {bad}, checkpoint "
@@ -2128,8 +2516,6 @@ def phase_dp_train(device, init_params, group, smi):
     from gslidar_tpu_torch.parallel.shard import (camera_at,
                                                   make_parallel_train_step,
                                                   stack_camera_batch)
-    from gslidar_tpu_torch.raster.composite_bwd import composite_backward
-    from gslidar_tpu_torch.raster.composite_fwd import composite_forward
     from gslidar_tpu_torch.render import gaussian_config, raster_settings
     from gslidar_tpu_torch.train import training
 
@@ -2167,8 +2553,7 @@ def phase_dp_train(device, init_params, group, smi):
         rec["events"][iteration].append(name)
         mark()
 
-    composite_forward.launches = 0
-    composite_backward.launches = 0
+    set_launch_counts()
     group.calls.clear()
     steps = StepLaunches()
     mark()
@@ -2178,16 +2563,15 @@ def phase_dp_train(device, init_params, group, smi):
                                     group=group)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = (composite_forward.launches, composite_backward.launches)
+    launches = launch_counts()
     reduces = [b - a for a, b in zip([0] + rec["reduces"], rec["reduces"])]
     fired = {it: ev for it, ev in rec["events"].items() if ev}
     say(13, f"data-parallel training through training(): {len(losses)} "
             f"steps of {DP_CAMERAS} cameras from {NUM_GAUSSIANS} gaussians "
             f"at {HW[0]}x{HW[1]} (" + ", ".join(DP_RUN) + f") | events "
-            f"{fired} | launches forward {launches[0]}, backward "
-            f"{launches[1]}, per step {steps.per_step} (and "
-            f"{steps.other[0]} forwards of the depth visualizations and the "
-            f"eval) | all_reduce per step {reduces} | loss "
+            f"{fired} | launches {launches_text(launches)}, per step "
+            f"{steps.per_step} (and {steps.other[0]} compositor forwards of "
+            f"the depth visualizations and the eval) | all_reduce per step {reduces} | loss "
             f"{[round(x, 5) for x in losses]} | moved by step 1 "
             f"{sorted(k for k in moved if moved[k][0])} | median step "
             f"{_median_ms(rec['step_ms'], range(2, DP_ITERATIONS + 1)):.3f} "
@@ -2195,7 +2579,7 @@ def phase_dp_train(device, init_params, group, smi):
     shutil.rmtree(run, ignore_errors=True)
     core = ("xyz", "f_dc", "opacity", "scaling", "rotation")
     if (bad or len(losses) != DP_ITERATIONS
-            or any(d != (DP_CAMERAS, DP_CAMERAS) for d in steps.per_step)
+            or any(d != (DP_CAMERAS,) * 4 for d in steps.per_step)
             or any(r != 2 for r in reduces)
             or "densify" not in rec["events"].get(8, [])
             or "eval" not in rec["events"].get(DP_ITERATIONS, [])
@@ -2269,14 +2653,14 @@ def phase_dp_train(device, init_params, group, smi):
     del dp_state, s, seq_grads
 
     # camera 0's kernels against their plain versions, at phase 7's bars
-    saved = (composite_forward.launches, composite_backward.launches)
+    saved = launch_counts()
     rows, starts, fwd, _, params8, st, C, S, ckpt = captured[0]
     ok_f, summ_f, _, _ = run_pair(rows, starts, params8, st, C, S)
     ok_b, summ_b = run_bwd_pair(rows, starts, fwd,
                                 random_cotangents(st, C, S, SEED + 23,
                                                   device),
                                 params8, st, C, S, ckpt)
-    composite_forward.launches, composite_backward.launches = saved
+    set_launch_counts(saved)
     del captured
     for kind, ok, summ in (("forward", ok_f, summ_f),
                            ("backward", ok_b, summ_b)):
@@ -2435,7 +2819,6 @@ def phase_sharded_renders(args, params, alive, cam, group, smi):
     from gslidar_tpu_torch.microbench.timing import time_ms
     from gslidar_tpu_torch.models import gaussians as G
     from gslidar_tpu_torch.parallel.comm import Loopback
-    from gslidar_tpu_torch.raster.composite_fwd import composite_forward
     from gslidar_tpu_torch.raster.rasterize import rasterize
     from gslidar_tpu_torch.render import gaussian_config, raster_settings
 
@@ -2472,25 +2855,26 @@ def phase_sharded_renders(args, params, alive, cam, group, smi):
         captured[:] = [a]
         return fwd_orig[0](*a, **k)
 
-    results, bad, all_launches = {}, [], 0
+    results, bad, all_launches = {}, [], [0, 0, 0, 0]
     co.composite_forward = ps.composite_forward = fwd_keep
     try:
         for kind, n in SHARD_SLICES.items():
             for label, grp in (("loopback", Loopback(n)), ("nccl", group)):
                 stats = {}
                 kw = dict(stats=stats) if kind == "gaussian" else {}
-                composite_forward.launches = 0
+                set_launch_counts()
                 with torch.no_grad():
                     out = fns[kind](*inputs, settings[kind], grp, **kw)
                 torch.cuda.synchronize()
-                launched = composite_forward.launches
-                all_launches += launched
+                launched = launch_counts()
+                all_launches = [a + b for a, b in zip(all_launches, launched)]
                 got = dict(zip(("color", "feature", "depth", "alpha",
                                 "contrib", "final_T"), out))
                 bars = _pano_bars(refs[kind], got)
                 dropped = out[6] if kind == "gaussian" else 0
-                ok = (launched == grp.size and dropped == 0 and all(
-                    m < PANO_MEAN_BAR for m, _ in bars.values()))
+                ok = (launched == (grp.size, 0, grp.size, 0)
+                      and dropped == 0 and all(
+                          m < PANO_MEAN_BAR for m, _ in bars.values()))
                 r = dict(slices=grp.size, launches=launched,
                          mean_and_tail={k: [float(f"{x:.3g}") for x in v]
                                         for k, v in bars.items()})
@@ -2531,7 +2915,7 @@ def phase_sharded_renders(args, params, alive, cam, group, smi):
 
     # the last slice's forward (the one beside the seam) vs plain
     errs = []
-    saved = composite_forward.launches
+    saved = launch_counts()
     for kind in SHARD_SLICES:
         rows, starts, params8, st, C, S = results[(kind, "captured")][:6]
         ok, summ, _, _ = run_pair(rows, starts, params8, st, C, S)
@@ -2544,7 +2928,7 @@ def phase_sharded_renders(args, params, alive, cam, group, smi):
         if not ok:
             bad.append((kind, "kernel vs plain"))
         del rows, starts
-    composite_forward.launches = saved
+    set_launch_counts(saved)
     del results
     if bad:
         raise RuntimeError(f"the sharded renders failed their checks: {bad}")
@@ -2744,8 +3128,6 @@ def phase_kitti360(smi, device, points=KITTI_POINTS, overrides=(),
     from gslidar_tpu_torch.engine.checkpoint import load_train_state
     from gslidar_tpu_torch.engine.evaluate import make_eval_render360
     from gslidar_tpu_torch.engine.train import camera_to_batch
-    from gslidar_tpu_torch.raster.composite_bwd import composite_backward
-    from gslidar_tpu_torch.raster.composite_fwd import composite_forward
     from gslidar_tpu_torch.render import gaussian_config, raster_settings
     from gslidar_tpu_torch.scripts import compare_2dgs_3dgs
 
@@ -2854,8 +3236,7 @@ def phase_kitti360(smi, device, points=KITTI_POINTS, overrides=(),
         timed("loader_s", saved_fns[0]), timed("scene_s", saved_fns[1]),
         create_keep, make_step, make_densify, bwd_keep)
     try:
-        composite_forward.launches = 0
-        composite_backward.launches = 0
+        set_launch_counts()
         steps = StepLaunches()
         stages.start()
         t0 = time.perf_counter()
@@ -2863,7 +3244,7 @@ def phase_kitti360(smi, device, points=KITTI_POINTS, overrides=(),
                                           on_event=on_event)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-        launches = (composite_forward.launches, composite_backward.launches)
+        launches = launch_counts()
     finally:
         (K.read_kitti360_info, T.build_scene, T.create_from_pcd,
          T.make_train_step, T.make_densify_fn,
@@ -2894,8 +3275,8 @@ def phase_kitti360(smi, device, points=KITTI_POINTS, overrides=(),
     dens = sorted(rec["densify"])
     say(14, f"training kitti360_nvs_10750: {len(losses)} steps ("
             + ", ".join(K10750_RUN) + f") | events {fired} | launches "
-            f"forward {launches[0]}, backward {launches[1]}, per step "
-            f"{per_step} (and {steps.other[0]} forwards of the depth "
+            f"{launches_text(launches)}, per step {per_step} (and "
+            f"{steps.other[0]} compositor forwards of the depth "
             f"visualizations and the final eval) | gaussians per step "
             f"{[rec['n'][i] for i in sorted(rec['n'])]} | instances per "
             f"step {[rec['pairs'][i] for i in sorted(rec['pairs'])]} | loss "
@@ -2936,7 +3317,7 @@ def phase_kitti360(smi, device, points=KITTI_POINTS, overrides=(),
                                                  device=device))
     cam = scene.get_test_cameras(1)[0]
     batch = camera_to_batch(cam, device)
-    saved_l = (composite_forward.launches, composite_backward.launches)
+    saved_l = launch_counts()
     render_ms = []
     for _ in range(4):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -2946,9 +3327,9 @@ def phase_kitti360(smi, device, points=KITTI_POINTS, overrides=(),
         ev[1].record()
         torch.cuda.synchronize()
         render_ms.append(ev[0].elapsed_time(ev[1]))
-    render_launches = composite_forward.launches - saved_l[0]
+    render_launches = [n - m for n, m in zip(launch_counts(), saved_l)]
     render_pairs = pkg.num_pairs
-    composite_forward.launches, composite_backward.launches = saved_l
+    set_launch_counts(saved_l)
     stage("render")
 
     eval_s, results = rec["eval_s"].get(K10750_ITERATIONS, (0.0, {}))
@@ -2967,7 +3348,8 @@ def phase_kitti360(smi, device, points=KITTI_POINTS, overrides=(),
             + f" | 360-degree render at {h}x{2 * w}: "
               f"{statistics.median(render_ms[1:]):.3f} ms (median of 3 after "
               f"one, CUDA events), {render_pairs} instances, "
-              f"{render_launches} forward launches for 4 renders | peak "
+              f"launches {launches_text(render_launches)} for 4 renders | "
+              f"peak "
               f"memory by stage (GiB) "
             + json.dumps({k: round(v, 2) for k, v in stages.peak.items()}))
     init = rec.pop("init")
@@ -2975,13 +3357,13 @@ def phase_kitti360(smi, device, points=KITTI_POINTS, overrides=(),
     torch.cuda.empty_cache()
 
     # ---------------------------------------- (a) gradients vs the oracle
-    saved_l = (composite_forward.launches, composite_backward.launches)
+    saved_l = launch_counts()
     worst, pairs_a, oracle_s, oracle_peak = oracle_gradients(
         args, init, cam, device, oracle_n, SEED + 31)
-    oracle_launches = (composite_forward.launches - saved_l[0],
-                       composite_backward.launches - saved_l[1])
-    composite_forward.launches, composite_backward.launches = saved_l
-    oracle_ok = oracle_launches == (1, 1) and all(
+    oracle_launches = tuple(n - m for n, m in zip(launch_counts(), saved_l))
+    set_launch_counts(saved_l)
+    # one preprocess picks the gaussians the view sees, then rasterize
+    oracle_ok = oracle_launches == (1, 1, 2, 1) and all(
         v <= ORACLE_RTOL for v in worst.values())
     say(14, f"(a) CUDA compositors' gradients vs the dense oracle's "
             f"autograd on {smi}: {oracle_n} gaussians of the 10750 scene "
@@ -3080,9 +3462,10 @@ def phase_kitti360(smi, device, points=KITTI_POINTS, overrides=(),
                          for i in checked[1:]))
     if (wrong or bad or len(losses) != K10750_ITERATIONS
             or n_points != args.num_pts or n_test != 4
-            or any(d != (1, 1) for d in per_step)
+            or any(d != (1, 1, 1, 1) for d in per_step)
             or n_final < cap_min or not at_cap or not at_3m
-            or not checks_ok or not same or not finite or render_launches != 4
+            or not checks_ok or not same or not finite
+            or render_launches != [4, 0, 4, 0]
             or sorted(results) != ["test", "train"]
             or not oracle_ok or not cli_ok
             or pngs != ["case1.png", "case2.png"]):
@@ -3120,6 +3503,8 @@ def phase_train_step(args, scene, init_params, device, smi):
                                                         init_raydrop_prior)
     from gslidar_tpu_torch.raster.composite_bwd import (
         composite_backward, composite_backward_reference)
+    from gslidar_tpu_torch.ops.sh import active_coeffs
+    from gslidar_tpu_torch.raster import preprocess as pp
     from gslidar_tpu_torch.raster.composite_fwd import composite_forward
     from gslidar_tpu_torch.raster.rasterize import densify_grads_from_T_tap
     from gslidar_tpu_torch.render import gaussian_config, raster_settings
@@ -3147,11 +3532,25 @@ def phase_train_step(args, scene, init_params, device, smi):
         captured["bwd"] = a
         return bwd_orig(*a)
 
+    # and what the preprocess kernels were given
+    pre_orig = (pp._preprocess_kernel, pp._preprocess_backward_kernel)
+
+    def pre_keep(*a):
+        captured["pre"] = a
+        return pre_orig[0](*a)
+
+    def pre_bwd_keep(*a):
+        captured["pre_bwd"] = a
+        return pre_orig[1](*a)
+
     co.bin_gaussians, co.composite_backward = bin_keep, bwd_keep
+    pp._preprocess_kernel, pp._preprocess_backward_kernel = (pre_keep,
+                                                             pre_bwd_keep)
     try:
         _, _, _, grads = step(state, batch, it, SH_DEGREE, 0.0, True)
     finally:
         co.bin_gaussians, co.composite_backward = bin_orig, bwd_orig
+        pp._preprocess_kernel, pp._preprocess_backward_kernel = pre_orig
     rows, starts, fwd, _, params8, s, C, S, ckpt = captured["bwd"]
     gid = captured["binning"].gid_sorted
     works = {"forward": composite_work(fwd, s, rows.shape[0], C, S,
@@ -3183,6 +3582,31 @@ def phase_train_step(args, scene, init_params, device, smi):
     if not ok:
         raise RuntimeError("the backward kernel disagrees with its plain "
                            "version at full size")
+
+    # the preprocess kernels on the step's own inputs: the forward and a
+    # backward of seeded cotangents, then the backward on the step's own
+    # cotangents, all against the plain versions
+    m, sc_, q, op, shs, colors, mask, vm, cam, opts = captured["pre"]
+    ok_p, err_pf, _ = say_prep_pair(
+        7, f"the training step's inputs ({n} gaussians)", prep_inputs(
+            m, sc_, q, op, shs, mask, vm, cam, opts.sh_degree,
+            opts.scale_factor, opts.settings, opts.scale_modifier, colors,
+            opts.angle_bounds, opts.cull_bounds), SEED + 62)
+    bwd_in = captured["pre_bwd"]
+    with torch.no_grad():
+        saved = launch_counts()
+        kern_g = pp._preprocess_backward_kernel(*bwd_in)
+        set_launch_counts(saved)
+        plain_g = pp.preprocess_backward_reference(
+            *bwd_in[:6], opts.sh_degree, *bwd_in[6:9], opts.scale_modifier)
+    ok_g, summ_g = compare_prep_grads(kern_g, plain_g)
+    say(7, f"preprocess backward kernel vs plain on the step's own "
+           f"cotangents ({n} gaussians): {'ok' if ok_g else 'FAIL'} "
+           f"{json.dumps(summ_g)}")
+    del kern_g, plain_g
+    if not (ok_p and ok_g):
+        raise RuntimeError("the preprocess kernels disagree with their "
+                           "plain versions on the training step")
 
     # the stages, each alone on the step's own inputs
     leaves = {k: v.detach().requires_grad_(True)
@@ -3219,6 +3643,10 @@ def phase_train_step(args, scene, init_params, device, smi):
             loss, [*leaves.values(), prior, tap], retain_graph=True,
             allow_unused=True),
         "backward kernel": lambda: composite_backward(*captured["bwd"]),
+        "preprocess kernel": lambda: pp._preprocess_kernel(
+            *captured["pre"]),
+        "preprocess backward kernel": lambda: pp._preprocess_backward_kernel(
+            *bwd_in),
         "reduction": lambda: rows.new_zeros(n, rows.shape[1]).index_add_(
             0, gid, table),
         "adam": lambda: (adam_step(state.params, grads, state.opt, lrs),
@@ -3233,6 +3661,18 @@ def phase_train_step(args, scene, init_params, device, smi):
     with torch.no_grad():
         plain_ms = [time_ms(lambda: composite_backward_reference(
             *captured["bwd"]), device) for _ in range(3)]
+        plain_prep = {"plain preprocess": lambda: pp._preprocess_plain(
+            m, sc_, q, op, shs, mask, vm, cam, opts.sh_degree,
+            opts.scale_factor, opts.settings, opts.scale_modifier, colors),
+            "plain preprocess backward":
+                lambda: pp.preprocess_backward_reference(
+                    *bwd_in[:6], opts.sh_degree, *bwd_in[6:9],
+                    opts.scale_modifier)}
+        plain_prep_ms = {}
+        for k, fn in plain_prep.items():
+            fn()                                    # warm-up
+            plain_prep_ms[k] = statistics.median(time_ms(fn, device)
+                                                 for _ in range(3))
     for fn in stages.values():                      # warm-up
         fn()
     torch.cuda.reset_peak_memory_stats()
@@ -3243,6 +3683,7 @@ def phase_train_step(args, scene, init_params, device, smi):
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     med = {k: statistics.median(v) for k, v in ms.items()}
     med["plain backward"] = statistics.median(plain_ms)
+    med.update(plain_prep_ms)
     med["autograd rest"] = (med["backward"] - med["backward kernel"]
                             - med["reduction"])
     passes = forward_pass_ms(stages["forward kernel with checkpoints"])
@@ -3250,13 +3691,19 @@ def phase_train_step(args, scene, init_params, device, smi):
     say(7, f"timing on {smi}, one training step of {n} gaussians "
            f"({rows.shape[0]} instances, {h}x{w}), CUDA events, median of 5: "
            + ", ".join(f"{k} {v:.3f} ms" for k, v in med.items())
-           + f" (plain backward: median of 3) | peak memory {peak_gb:.2f} "
-           f"GiB")
+           + f" (the plain backward and the plain preprocess: median of 3) "
+             f"| peak memory {peak_gb:.2f} GiB")
     say_passes(7, smi, passes, med["forward kernel with checkpoints"])
     say(7, f"torch.profiler over 3 steps: device busy {busy_ms:.3f} ms of "
            f"{wall_ms:.3f} ms per step, idle share {idle:.4f} | by device "
            f"time per step: "
            + ", ".join(f"{k[:60]} {v:.3f} ms" for k, v in top))
+    works["preprocess"] = dict(gaussians=n, err_f=err_pf,
+                               err_b=summ_g["raw_max_abs_err"],
+                               K=shs.shape[1], C=shs.shape[2],
+                               n_sh=active_coeffs(opts.sh_degree,
+                                                  shs.shape[1]),
+                               scale_cols=sc_.shape[1])
     return summ["raw_max_abs_err"], med, works
 
 
@@ -3326,6 +3773,28 @@ def say_bounds(phase, label, work, clock_hz, ms):
                f"{work.accepting_pixels} | {work.n_bytes} bytes, "
                f"{work.fp32} fp32 ops, {work.mufu} MUFU ops")
     return b
+
+
+def say_prep_bounds(prep5, prep7, med7, clock_hz):
+    """The least times of the preprocess kernels (``bounds.
+    preprocess_bound``): the forward on phase 5's 360-degree view, the
+    backward on phase 7's training step, each beside its time there.
+    Returns (the forward's Bound, the backward's)."""
+    from gslidar_tpu_torch.microbench.bounds import preprocess_bound
+    dims = (prep7["n_sh"], prep7["K"], prep7["C"], prep7["scale_cols"])
+    out = []
+    for label, n, ms, bwd in (
+            ("preprocess forward kernel on phase 5's 360-degree view",
+             prep5["gaussians"], prep5["med"]["preprocess kernel"], False),
+            ("preprocess backward kernel on the training step",
+             prep7["gaussians"], med7["preprocess backward kernel"], True)):
+        b = preprocess_bound(n, *dims, clock_hz, backward=bwd)
+        say(7, f"bound of the {label} ({n} gaussians): {b.ms:.4f} ms, set "
+               f"by {b.by} ("
+               + ", ".join(f"{k} {v:.4f}" for k, v in b.terms.items())
+               + f" ms) | kernel {ms:.3f} ms = {ms / b.ms:.1f}x the bound")
+        out.append(b)
+    return out
 
 
 # ---------------------------------------------------------------- phase 8
@@ -3472,8 +3941,9 @@ def run_entry(phase, main, argv):
 
 def run_bench(phase, P, device):
     """``python -m gslidar_tpu_torch.bench --points P`` in a subprocess:
-    its last line's keys and value checked, and its forward launches,
-    which must be one per render it made. Returns (the JSON, launches)."""
+    its last line's keys and value checked, and its launches of the
+    forward compositor and of the preprocess, each of which must be one
+    per render it made. Returns (the JSON, the four ``launch_counts``)."""
     import sys
     cmd = [sys.executable, "-m", "gslidar_tpu_torch.bench", "--points",
            str(P), "--renders", str(BENCH_RENDERS), "--device", device.type]
@@ -3492,34 +3962,38 @@ def run_bench(phase, P, device):
     if set(res) != BENCH_KEYS or res["metric"] != metric or \
             not res["value"] > 0 or res["backend"] != device.type:
         raise RuntimeError(f"the bench's last line is not its result: {res}")
-    launches = int(next(ln for ln in lines if ln.startswith(
-        "forward kernel launches:")).split(":")[1])
+    fwd, pre = (int(next(ln for ln in lines if ln.startswith(
+        f"{k} kernel launches:")).split(":")[1])
+        for k in ("forward", "preprocess"))
     # the first render, the median's warm-up and renders, the rate's
     want = 2 + 2 * BENCH_RENDERS if device.type == "cuda" else 0
-    if launches != want:
-        raise RuntimeError(f"the bench launched the forward kernel "
-                           f"{launches} times, not once per render ({want})")
-    return res, launches
+    if (fwd, pre) != (want, want):
+        raise RuntimeError(f"the bench launched the forward compositor "
+                           f"{fwd} and the preprocess {pre} times, not once "
+                           f"per render ({want})")
+    return res, [fwd, 0, pre, 0]
 
 
-def phase_bench(device, points=BENCH_POINTS, step_points=NUM_GAUSSIANS):
+def phase_bench(device, smi, points=BENCH_POINTS,
+                step_points=NUM_GAUSSIANS):
     """The measurement entry points on their own scenes: the forward kernel
-    against its plain version on ``bench.build_scene``'s 360-degree render
-    and the backward on a ``bench_train_step`` step (their launches not
-    counted); then, with the counts set to 0, ``python -m
-    gslidar_tpu_torch.bench`` at each of ``points`` in a subprocess, and
-    ``bench_train_step``, ``profile_render --tiles BENCH_TILES --trace``,
-    ``profile_train_step --trace``, ``tile_stats`` and
-    ``measure_tight_rects`` in this process. Returns (the forward's and
-    the backward's largest errors, the bench path's forward and backward
-    launches, the renders per second at each of ``points``)."""
+    against its plain version on ``bench.build_scene``'s 360-degree render,
+    the preprocess kernels against theirs and the render through them
+    against the render through the plain preprocess at each of
+    ``points`` (``render_vs_plain_preprocess``), and the compositors on a
+    ``bench_train_step`` step (their launches not counted); then, with the
+    counts set to 0, ``python -m gslidar_tpu_torch.bench`` at each of
+    ``points`` in a subprocess, and ``bench_train_step``, ``profile_render
+    --tiles BENCH_TILES --trace``, ``profile_train_step --trace``,
+    ``tile_stats`` and ``measure_tight_rects`` in this process. Returns
+    (the forward's and the backward's largest errors, the bench path's
+    ``launch_counts``, the renders per second at each of ``points``, the
+    preprocess checks by size: their errors and stage times)."""
     import torch
     import gslidar_tpu_torch.raster.composite_op as co
     from gslidar_tpu_torch import bench
     from gslidar_tpu_torch.raster.binning import bin_gaussians
-    from gslidar_tpu_torch.raster.composite_bwd import composite_backward
-    from gslidar_tpu_torch.raster.composite_fwd import (composite_forward,
-                                                        make_params,
+    from gslidar_tpu_torch.raster.composite_fwd import (make_params,
                                                         pack_payload)
     from gslidar_tpu_torch.raster.preprocess import preprocess
     from gslidar_tpu_torch.scripts import bench_train_step as bts
@@ -3532,7 +4006,7 @@ def phase_bench(device, points=BENCH_POINTS, step_points=NUM_GAUSSIANS):
     sf, P = bench.SCALE_FACTOR, points[0]
     s = bench.bench_settings()
     scene = bench.build_scene(P, 0, device)
-    saved = (composite_forward.launches, composite_backward.launches)
+    saved = launch_counts()
     with torch.no_grad():
         prep = preprocess(scene["means3D"], scene["scales"],
                           scene["rotations"], scene["opacity"], scene["shs"],
@@ -3545,7 +4019,7 @@ def phase_bench(device, points=BENCH_POINTS, step_points=NUM_GAUSSIANS):
                                                scene["features"]))
         ok, summ, _, _ = run_pair(b.data_rows.contiguous(), b.tile_starts,
                                   make_params(sf, s), s, 4, 4)
-    composite_forward.launches, composite_backward.launches = saved
+    set_launch_counts(saved)
     say(15, f"forward kernel vs plain on bench.build_scene({P})'s "
             f"360-degree render ({b.num_pairs} instances, {s.height}x"
             f"{s.width}, {s.tile_h}x{s.tile_w} tiles): "
@@ -3554,7 +4028,36 @@ def phase_bench(device, points=BENCH_POINTS, step_points=NUM_GAUSSIANS):
         raise RuntimeError("the forward kernel disagrees with its plain "
                            "version on the bench scene")
     err_f = summ["raw_max_abs_err"]
-    del scene, prep, b
+    del prep, b
+
+    # the preprocess kernels and the render through them at each size
+    prep_checks = {}
+    for n in points:
+        if n != P:
+            del scene
+            scene = bench.build_scene(n, 0, device)
+        ok_p, ef, eb = say_prep_pair(
+            15, f"bench.build_scene({n})'s 360-degree view", prep_inputs(
+                scene["means3D"], scene["scales"], scene["rotations"],
+                scene["opacity"], scene["shs"], scene["mask"],
+                torch.eye(4, device=device), torch.zeros(3, device=device),
+                bench.SH_DEGREE, sf, s), SEED + 63)
+        ok_r, med_r = render_vs_plain_preprocess(
+            15, f"bench.build_scene({n})'s 360-degree render", (
+                scene["means3D"], scene["scales"], scene["rotations"],
+                scene["opacity"], scene["shs"], scene["features"],
+                scene["mask"], torch.eye(4, device=device),
+                torch.zeros(3, device=device),
+                torch.tensor([0.0, 0.0, 0.0, 1.0], device=device),
+                bench.SH_DEGREE, sf), s, smi)
+        if not (ok_p and ok_r):
+            raise RuntimeError(f"the preprocess kernels or the render "
+                               f"through them disagree with the plain "
+                               f"versions on the bench scene at {n}")
+        prep_checks[n] = dict(err_f=ef, err_b=eb, med=med_r)
+    del scene
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
 
     tb = bts.setup(step_points, 16, 16, device)
     captured = {}
@@ -3570,7 +4073,7 @@ def phase_bench(device, points=BENCH_POINTS, step_points=NUM_GAUSSIANS):
                 True)
     finally:
         co.composite_backward = bwd_orig
-    composite_forward.launches, composite_backward.launches = saved
+    set_launch_counts(saved)
     failed, err_sf, err_b = check_step_kernels(
         15, f"on a bench_train_step step ({step_points} gaussians)",
         captured.pop("bwd"), SEED + 23)
@@ -3581,11 +4084,12 @@ def phase_bench(device, points=BENCH_POINTS, step_points=NUM_GAUSSIANS):
 
     trace = ["--trace"] if device.type == "cuda" else []
     dev = ["--device", device.type]
-    composite_forward.launches = composite_backward.launches = 0
-    rates, sub_launches = {}, 0
+    set_launch_counts()
+    rates, sub_launches = {}, [0, 0, 0, 0]
     for n in points:
         res, k = run_bench(15, n, device)
-        rates[n], sub_launches = res["value"], sub_launches + k
+        rates[n] = res["value"]
+        sub_launches = [a + b for a, b in zip(sub_launches, k)]
     run_entry(15, bts.main, ["--points", str(step_points), *dev])
     run_entry(15, profile_render.main, ["--points", str(P), "--tiles",
                                         *BENCH_TILES, *trace, *dev])
@@ -3593,15 +4097,14 @@ def phase_bench(device, points=BENCH_POINTS, step_points=NUM_GAUSSIANS):
                                             *trace, *dev])
     run_entry(15, tile_stats.main, ["--points", str(P), *dev])
     run_entry(15, measure_tight_rects.main, ["--points", str(P), *dev])
-    launches = (composite_forward.launches + sub_launches,
-                composite_backward.launches)
-    say(15, f"bench path: renders/s {rates} | launches: forward "
-            f"{launches[0]} ({sub_launches} in the bench's subprocesses), "
-            f"backward {launches[1]} | {time.perf_counter() - t0:.1f} s")
+    launches = [a + b for a, b in zip(launch_counts(), sub_launches)]
+    say(15, f"bench path: renders/s {rates} | launches "
+            f"{launches_text(launches)} ({launches_text(sub_launches)} in "
+            f"the bench's subprocesses) | {time.perf_counter() - t0:.1f} s")
     if device.type == "cuda" and min(launches) == 0:
         raise RuntimeError(f"the bench path launched {launches} forward and "
                            "backward kernels")
-    return max(err_f, err_sf), err_b, launches, rates
+    return max(err_f, err_sf), err_b, launches, rates, prep_checks
 
 
 def main():
@@ -3611,10 +4114,10 @@ def main():
     device = torch.device("cuda", 0)
     clock_hz = max_sm_clock_hz()
     phase_build()
-    err3, err3b = phase_kernel_vs_plain(device)
+    err3, err3b, err3p, err3pb = phase_kernel_vs_plain(device)
     args, params, alive, prior, cams, _ = phase_main_path(device)
-    err5, med, work5 = phase_full_size(args, params, alive, prior, cams[0],
-                                       smi)
+    err5, med, work5, prep5 = phase_full_size(args, params, alive, prior,
+                                              cams[0], smi)
     targs, scene, launches = phase_train(device, params)
     phase_train_cli()
     err7, med7, works7 = phase_train_step(targs, scene, params, device, smi)
@@ -3625,6 +4128,8 @@ def main():
     bound_bwd = say_bounds(7, "backward kernel on the training view",
                            works7["backward"], clock_hz,
                            med7["backward kernel"])
+    bound_pf, bound_pb = say_prep_bounds(prep5, works7["preprocess"], med7,
+                                         clock_hz)
     phase_train_densify(device, params, smi)
     err11, _ = phase_eval_refine(args, params, alive, prior, smi)
     group = phase_nccl(device)
@@ -3639,7 +4144,7 @@ def main():
     torch.cuda.empty_cache()
     err12, err12b, _ = phase_opv2v(smi, device)
     err14, err14b, kitti_launches, _ = phase_kitti360(smi, device)
-    err15, err15b, bench_launches, _ = phase_bench(device)
+    err15, err15b, bench_launches, _, prep15 = phase_bench(device, smi)
     gather = phase_gather(device)
     chains = phase_op_chains(device, clock_hz)
     print(smi)
@@ -3652,7 +4157,7 @@ def main():
                              "data-parallel training (phase 13)":
                                  dp_launches[0],
                              "sharded 360-degree renders (phase 13)":
-                                 shard_launches,
+                                 shard_launches[0],
                              "kitti360_nvs_10750 training (phase 14)":
                                  kitti_launches[0],
                              "bench (phase 15)": bench_launches[0]},
@@ -3676,6 +4181,45 @@ def main():
         "ms": med7["backward kernel"],
         "plain_ms": med7["plain backward"],
         "bound_ms": bound_bwd.ms, "bound_by": bound_bwd.bound_by,
+        "library_ms": None}, {
+        "name": "preprocess_fwd", "route": "cuda",
+        "source": "gslidar_tpu_torch/csrc/preprocess.cu",
+        "replaces": "gslidar_tpu/raster/preprocess.py:191 (XLA, with "
+                    "gslidar_tpu/ops/sh.py:56)",
+        "launches": launches[2],
+        "launches_by_path": {"training (phase 6)": launches[2],
+                             "data-parallel training (phase 13)":
+                                 dp_launches[2],
+                             "sharded 360-degree renders (phase 13)":
+                                 shard_launches[2],
+                             "kitti360_nvs_10750 training (phase 14)":
+                                 kitti_launches[2],
+                             "bench (phase 15)": bench_launches[2]},
+        "max_abs_err": max(err3p, prep5["err_f"], works7["preprocess"][
+            "err_f"], *(c["err_f"] for c in prep15.values())),
+        "ms": prep5["med"]["preprocess kernel"],
+        "plain_ms": prep5["med"]["plain preprocess"],
+        "ms_10M": prep15[BENCH_POINTS[1]]["med"]["preprocess kernel"],
+        "plain_ms_10M": prep15[BENCH_POINTS[1]]["med"]["plain preprocess"],
+        "bound_ms": bound_pf.ms, "bound_by": bound_pf.bound_by,
+        "library_ms": None}, {
+        "name": "preprocess_bwd", "route": "cuda",
+        "source": "gslidar_tpu_torch/csrc/preprocess.cu",
+        "replaces": "the autodiff of gslidar_tpu/raster/preprocess.py:191 "
+                    "(XLA)",
+        "launches": launches[3],
+        "launches_by_path": {"training (phase 6)": launches[3],
+                             "data-parallel training (phase 13)":
+                                 dp_launches[3],
+                             "kitti360_nvs_10750 training (phase 14)":
+                                 kitti_launches[3],
+                             "bench (phase 15)": bench_launches[3]},
+        "max_abs_err": max(err3pb, prep5["err_b"],
+                           works7["preprocess"]["err_b"],
+                           *(c["err_b"] for c in prep15.values())),
+        "ms": med7["preprocess backward kernel"],
+        "plain_ms": med7["plain preprocess backward"],
+        "bound_ms": bound_pb.ms, "bound_by": bound_pb.bound_by,
         "library_ms": None}, {
         "name": "gather_rows", "route": "cuda",
         "source": "gslidar_tpu_torch/csrc/gather_rows.cu",

@@ -15,10 +15,10 @@ compositing kernel without checkpoints.
 
 Earlier lines give the panorama's instance count, the card (``nvidia-smi``
 name and power limit), the median ms of one render between CUDA events
-and the forward kernel's launches in the run (0 on the CPU, where the
-plain version runs). The last line is one JSON object with root
-``bench.py``'s keys: ``metric``, ``value`` (renders per second of
-``--renders`` back-to-back renders by the host's clock with one
+and the forward compositing and preprocess kernels' launches in the run
+(0 on the CPU, where the plain versions run). The last line is one JSON
+object with root ``bench.py``'s keys: ``metric``, ``value`` (renders per
+second of ``--renders`` back-to-back renders by the host's clock with one
 synchronize at the end, so the binning's host sync and the enqueue
 count), ``unit``, ``vs_baseline`` (against 100 renders/s, BASELINE.md's
 estimate of the CUDA rasterizer on an A100) and ``backend`` (``cuda`` or
@@ -42,6 +42,7 @@ import torch
 from gslidar_tpu_torch.microbench.timing import (calls_per_sec, card,
                                                  entry_device, median_ms)
 from gslidar_tpu_torch.raster.composite_fwd import composite_forward
+from gslidar_tpu_torch.raster.preprocess import preprocess
 from gslidar_tpu_torch.raster.rasterize import rasterize
 from gslidar_tpu_torch.raster.settings import RasterSettings
 
@@ -150,6 +151,7 @@ def main(argv=None):
           f"{rate:.2f} renders/s", flush=True)
     print(f"forward kernel launches: {composite_forward.launches}",
           flush=True)
+    print(f"preprocess kernel launches: {preprocess.launches}", flush=True)
     print(json.dumps({
         "metric": "pano_360_renders_per_sec_66x1030_"
                   f"{points_label(a.points)}_gaussians",

@@ -96,6 +96,25 @@ SIGNATURES = {
     "gslidar_op_chain_info": [
         _I, _I, _I, _I, _P,              # device, dtype, case, cols, out
     ],
+    "gslidar_preprocess_fwd": [
+        _I, _P,                          # device, params (host PrepParams)
+        _P, _P, _P, _P, _P, _P,          # means, scales, quats, opacity,
+                                         # mask, shs
+        _P, _P, _P, _P,                  # viewmat, campos, sin_a, cos_a
+        _P, _P, _P, _P, _P, _P,          # T, xy, depth, normal, color,
+                                         # radius
+        _P, _P, _P, _P, _P,              # rect_min, rect_max, tiles, valid,
+                                         # clamped
+        _P,                              # stream
+    ],
+    "gslidar_preprocess_bwd": [
+        _I, _P,                          # device, params (host PrepParams)
+        _P, _P, _P, _P, _P, _P,          # means, scales, quats, shs,
+                                         # viewmat, campos
+        _P, _P, _P,                      # clamped, dT, dcolor
+        _P, _P, _P, _P,                  # dmeans, dscales, dquats, dshs
+        _P,                              # stream
+    ],
 }
 
 

@@ -123,6 +123,60 @@ def gather_bound(width: int, ids: torch.Tensor) -> Bound:
     return bound(bytes=bytes_ms(gather_bytes(width, ids)))
 
 
+# --------------------------------------------------------- preprocess
+# per gaussian, least counts read off csrc/preprocess.cu. MUFU: the
+# forward's quaternion sqrtf and 4 divisions, the centre's 2 atan2f and 2
+# sqrtf, the cutoff's logf and sqrtf, 12 samples x (2 atan2f + sqrtf), the
+# view direction's sqrtf and 3 divisions; the backward's quaternion sqrtf
+# and 4 divisions, 4 more for its gradient, the view direction's sqrtf
+# and 3 divisions and 3 for its gradient. fp32: the forward's 12 samples
+# x 27 (position 15, guard 3, theta's argument 3, pixel maps 6) and its
+# frame (110: normalisation, rotation, four 3x3 products, flip), the
+# backward's 160 (its four 3x3 products, rotation, quaternion gradient
+# and normalisation), plus the SH terms below
+PREP_FWD_MUFU, PREP_BWD_MUFU = 51, 16
+PREP_FWD_FP32, PREP_BWD_FP32 = 12 * 27 + 110, 160
+
+
+def preprocess_bytes(P: int, n_sh: int, K: int, C: int, scale_cols: int,
+                     backward: bool = False) -> int:
+    """The bytes the preprocess pass must move for P gaussians with n_sh
+    active SH coefficients of K, C channels (n_sh = 0: the colors were
+    given) and scales of scale_cols columns. Forward: reads means 12,
+    two scales 8, the quaternion 16, opacity 4, mask 1 and the active SH
+    4 n_sh C; writes T 36, xy 8, depth 4, normal 12, color 4 C, radius 4,
+    the rects 16, the tile count 4, valid 1 and the clamp mask C (with SH).
+    Backward: reads means, two scales, the quaternion, dT 36 and with SH
+    the active coefficients, the clamp mask and d color 4 C; writes d means
+    12, d scales 4 scale_cols, d quats 16 and d SH 4 K C."""
+    if backward:
+        read = 12 + 8 + 16 + 36 + (4 * n_sh * C + C + 4 * C if n_sh else 0)
+        write = 12 + 4 * scale_cols + 16 + (4 * K * C if n_sh else 0)
+    else:
+        read = 12 + 8 + 16 + 4 + 1 + 4 * n_sh * C
+        write = 36 + 8 + 4 + 12 + 4 + 16 + 4 + 1 + (5 * C if n_sh else 0)
+    return P * (read + write)
+
+
+def preprocess_bound(P: int, n_sh: int, K: int, C: int, scale_cols: int,
+                     clock_hz: float, backward: bool = False) -> Bound:
+    """The least time of the preprocess pass (``preprocess_bytes``), the
+    forward or the backward: its bytes, its fp32 adds and multiplies (the
+    SH sum 2 n_sh C + C in the forward; in the backward 2 n_sh C for the
+    basis' gradients, n_sh C for d SH and 6 (n_sh - 1) for d direction)
+    and its MUFU operations."""
+    if backward:
+        fp32 = PREP_BWD_FP32 + 3 * n_sh * C + 6 * max(n_sh - 1, 0)
+        mufu = PREP_BWD_MUFU
+    else:
+        fp32 = PREP_FWD_FP32 + (2 * n_sh * C + C if n_sh else 0)
+        mufu = PREP_FWD_MUFU
+    return bound(bytes=bytes_ms(preprocess_bytes(P, n_sh, K, C, scale_cols,
+                                                 backward)),
+                 fp32=issue_ms(P * fp32, "fp32", clock_hz),
+                 mufu=issue_ms(P * mufu, "mufu", clock_hz))
+
+
 # ---------------------------------------------------------- op chains
 # per element and op, the instructions each pipe must issue (float32;
 # bfloat16 packs two elements per instruction where sm_90a has the packed

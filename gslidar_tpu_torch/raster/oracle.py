@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from gslidar_tpu_torch.raster.preprocess import preprocess
+from gslidar_tpu_torch.raster.preprocess import preprocess_reference
 from gslidar_tpu_torch.raster.settings import (ALPHA_EPS, FAR_N,
                                                FILTER_INV_SQUARE, MAX_ALPHA,
                                                NEAR_N, RasterSettings,
@@ -37,9 +37,9 @@ def rasterize_dense(means3D, scales, rotations, opacity, shs, features,
     """Render by walking all P gaussians over all H*W pixels: a dict of
     color [C, H, W], feature [S + 3, H, W], depth [4, H, W], alpha and
     final_T [1, H, W], and radii [P]."""
-    prep = preprocess(means3D, scales, rotations, opacity, shs, mask,
-                      viewmat, campos, sh_degree, scale_factor, settings,
-                      1.0, colors_precomp)
+    prep = preprocess_reference(means3D, scales, rotations, opacity, shs,
+                                mask, viewmat, campos, sh_degree,
+                                scale_factor, settings, 1.0, colors_precomp)
     H, W = settings.height, settings.width
     VFOV_min, VFOV_max, HFOV_min, HFOV_max = settings.angle_bounds
     near, far = NEAR_N * scale_factor, FAR_N * scale_factor

@@ -21,8 +21,9 @@ smoke test refuses to run without a card.
   gradients and ``scripts.compare_2dgs_3dgs`` run the same way;
 * the bench and the measurement scripts (``gslidar_tpu_torch.bench``,
   ``scripts.{bench_train_step,profile_render,profile_train_step,
-  tile_stats,measure_tight_rects}``) run the same way on the CPU, and
-  each refuses to start without a card unless given ``--device cpu``;
+  tile_stats,measure_tight_rects,profile_preprocess}``) run the same way
+  on the CPU, and each refuses to start without a card unless given
+  ``--device cpu``;
 * ``python3 chip_smoke.py`` with CUDA hidden exits non-zero with a clear
   message and prints no result line.
 """
@@ -318,7 +319,8 @@ ENTRY_POINTS = ("gslidar_tpu_torch.bench",
                 "gslidar_tpu_torch.scripts.profile_render",
                 "gslidar_tpu_torch.scripts.profile_train_step",
                 "gslidar_tpu_torch.scripts.tile_stats",
-                "gslidar_tpu_torch.scripts.measure_tight_rects")
+                "gslidar_tpu_torch.scripts.measure_tight_rects",
+                "gslidar_tpu_torch.scripts.profile_preprocess")
 
 
 def test_bench_and_scripts_run_without_jax():
@@ -335,6 +337,7 @@ def test_bench_and_scripts_run_without_jax():
             f"mods[3].main([{cpu}, '--reps', '1']); "
             f"mods[4].main([{cpu}, '--tiles', '16x16']); "
             f"mods[5].main([{cpu}]); "
+            f"mods[6].main([{cpu}, '--calls', '1', '--plain']); "
             + NONE_LOADED + "print('NO_JAX_OK')")
     r = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=REPO,
                        capture_output=True, text=True, timeout=300)
@@ -343,6 +346,7 @@ def test_bench_and_scripts_run_without_jax():
     assert '"backend": "cpu"' in out and "ms/step" in out
     assert "FULL 360 single-pass render" in out and "FULL train step" in out
     assert "tile 16x16: grid 5x65" in out and "K per-row" in out
+    assert "preprocess_reference of 512 gaussians" in out
     assert out.strip().endswith("NO_JAX_OK")
 
 
