@@ -350,23 +350,24 @@ def say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
 
+# the counters of ``launch_counts``, in its order
+LAUNCH_COUNTERS = ("launches.composite_fwd", "launches.composite_bwd",
+                   "launches.preprocess_fwd", "launches.preprocess_bwd")
+
+
 def launch_counts():
     """The kernel launches counted so far: (compositor forward, compositor
     backward, preprocess forward, preprocess backward)."""
-    from gslidar_tpu_torch.raster.composite_bwd import composite_backward
-    from gslidar_tpu_torch.raster.composite_fwd import composite_forward
-    from gslidar_tpu_torch.raster.preprocess import preprocess
-    return (composite_forward.launches, composite_backward.launches,
-            preprocess.launches, preprocess.backward_launches)
+    from gslidar_tpu_torch.utils.trace import counters
+    c = counters()
+    return tuple(c.get(k, 0) for k in LAUNCH_COUNTERS)
 
 
 def set_launch_counts(counts=(0, 0, 0, 0)):
     """Set the four counts of ``launch_counts`` (0 by default)."""
-    from gslidar_tpu_torch.raster.composite_bwd import composite_backward
-    from gslidar_tpu_torch.raster.composite_fwd import composite_forward
-    from gslidar_tpu_torch.raster.preprocess import preprocess
-    (composite_forward.launches, composite_backward.launches,
-     preprocess.launches, preprocess.backward_launches) = counts
+    from gslidar_tpu_torch.utils.trace import count
+    for k, want, now in zip(LAUNCH_COUNTERS, counts, launch_counts()):
+        count(k, want - now)
 
 
 # one render without a gradient: one forward of the compositor and one of
@@ -3809,13 +3810,14 @@ def phase_gather(device):
     then kernel vs plain, bitwise, at both."""
     import torch
     from gslidar_tpu_torch.microbench import dma_gather as dg
+    from gslidar_tpu_torch.utils.trace import counters
     runs = {}
-    dg.gather_rows.launches = 0
+    launched = counters().get("launches.gather_rows", 0)
     for name, (P, D, K) in GATHER_SHAPES.items():
         runs[name] = dg.main(["--device", "cuda", "--rows", str(P),
                               "--width", str(D), "--ids", str(K),
                               "--seed", str(SEED)])
-    launches = dg.gather_rows.launches
+    launches = counters().get("launches.gather_rows", 0) - launched
     err = 0.0
     for name, (P, D, K) in GATHER_SHAPES.items():
         table, ids = dg.make_inputs(P, D, K, SEED, device)
@@ -3856,9 +3858,10 @@ def phase_op_chains(device, clock_hz):
     import torch
     from gslidar_tpu_torch.microbench import vpu_ops as vo
     from gslidar_tpu_torch.microbench.timing import time_ms
-    vo.op_chain.launches = 0
+    from gslidar_tpu_torch.utils.trace import counters
+    launched = counters().get("launches.op_chain", 0)
     rows = vo.main(["--device", "cuda"])
-    launches = vo.op_chain.launches
+    launches = counters().get("launches.op_chain", 0) - launched
     say(9, f"op-chain path: {launches} kernel launches")
     if launches == 0:
         raise RuntimeError("the op-chain path launched no kernel")

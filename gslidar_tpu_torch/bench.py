@@ -41,10 +41,9 @@ import torch
 
 from gslidar_tpu_torch.microbench.timing import (calls_per_sec, card,
                                                  entry_device, median_ms)
-from gslidar_tpu_torch.raster.composite_fwd import composite_forward
-from gslidar_tpu_torch.raster.preprocess import preprocess
 from gslidar_tpu_torch.raster.rasterize import rasterize
 from gslidar_tpu_torch.raster.settings import RasterSettings
+from gslidar_tpu_torch.utils.trace import counters
 
 A100_BASELINE_RENDERS_PER_SEC = 100.0
 SCALE_FACTOR = 0.1
@@ -149,9 +148,11 @@ def main(argv=None):
           f"{'CUDA events' if device.type == 'cuda' else 'host clock'}) = "
           f"{1e3 / ms:.2f} renders/s; {a.renders} back-to-back renders: "
           f"{rate:.2f} renders/s", flush=True)
-    print(f"forward kernel launches: {composite_forward.launches}",
-          flush=True)
-    print(f"preprocess kernel launches: {preprocess.launches}", flush=True)
+    launched = counters()
+    print(f"forward kernel launches: "
+          f"{launched.get('launches.composite_fwd', 0)}", flush=True)
+    print(f"preprocess kernel launches: "
+          f"{launched.get('launches.preprocess_fwd', 0)}", flush=True)
     print(json.dumps({
         "metric": "pano_360_renders_per_sec_66x1030_"
                   f"{points_label(a.points)}_gaussians",

@@ -11,6 +11,7 @@ import torch
 from gslidar_tpu_torch.models import gaussians as G
 from gslidar_tpu_torch.raster.rasterize import RasterOut, rasterize
 from gslidar_tpu_torch.raster.settings import RasterSettings
+from gslidar_tpu_torch.utils.trace import backward_boundary, span
 
 
 class RenderPkg(NamedTuple):
@@ -38,7 +39,9 @@ def render(params: G.Params, alive: torch.Tensor, viewmat, campos, timestamp,
            dynamic: bool, median_depth: bool = False, time_shift=0.0,
            T_tap=None, use_prior: bool = True,
            full360: bool = False) -> RenderPkg:
-    """One panorama render.
+    """One panorama render: the model's activations (span
+    ``render.activations``), ``rasterize``, the ray-drop prior
+    (``render.prior``).
 
     Args:
         towards_idx: 0 = forward, 1 = backward (selects the prior half).
@@ -50,25 +53,28 @@ def render(params: G.Params, alive: torch.Tensor, viewmat, campos, timestamp,
             is re-laid-out to the stitched break order (0, w/2, 3w/2, 2w)
             instead of half-sliced, and towards_idx is ignored.
     """
-    opacity = G.get_opacity(params)[:, 0]
-    ts = timestamp - time_shift
-    means3D = G.get_xyz_shm(params, ts, cfg)
-    means3D = means3D + G.get_inst_velocity(params, cfg) * time_shift
-    marginal = G.get_marginal_t(params, ts)[:, 0]
-    if dynamic:
-        opacity = opacity * marginal
+    with span("render.activations"):
+        opacity = G.get_opacity(params)[:, 0]
+        ts = timestamp - time_shift
+        means3D = G.get_xyz_shm(params, ts, cfg)
+        means3D = means3D + G.get_inst_velocity(params, cfg) * time_shift
+        marginal = G.get_marginal_t(params, ts)[:, 0]
+        if dynamic:
+            opacity = opacity * marginal
 
-    scales = G.get_scaling(params)
-    rotations = params["rotation"]
-    shs = G.get_features(params)
+        scales = G.get_scaling(params)
+        rotations = params["rotation"]
+        shs = G.get_features(params)
 
-    t_scale = torch.clamp_max(G.get_scaling_t(params), 2.0)
-    v = G.get_inst_velocity(params, cfg)
-    features = torch.cat([t_scale, v], dim=1)               # S = 4
+        t_scale = torch.clamp_max(G.get_scaling_t(params), 2.0)
+        v = G.get_inst_velocity(params, cfg)
+        features = torch.cat([t_scale, v], dim=1)               # S = 4
 
-    mask = alive & (opacity > 1.0 / 255.0)
-    if dynamic:
-        mask = mask & (marginal > 0.05)
+        mask = alive & (opacity > 1.0 / 255.0)
+        if dynamic:
+            mask = mask & (marginal > 0.05)
+    backward_boundary((means3D, scales, rotations, opacity, shs, features),
+                      "bwd.activations")
 
     out: RasterOut = rasterize(
         means3D, scales, rotations, opacity, shs, features, mask,
@@ -84,20 +90,21 @@ def render(params: G.Params, alive: torch.Tensor, viewmat, campos, timestamp,
         torch.sum(normal * normal, dim=0, keepdim=True) + 1e-16)
 
     if use_prior and prior_param is not None:
-        w = prior_param.shape[-1] // 2
-        if full360:
-            # stitched layout (breaks 0, w//2, w//2 + w, 2w): the back half
-            # splits at w - w//2 (not w//2: the two differ for odd w, such
-            # as KITTI's 515)
-            front = prior_param[..., :w]
-            back = prior_param[..., w:]
-            split = w - w // 2
-            prior = torch.sigmoid(torch.cat(
-                [back[..., split:], front, back[..., :split]], dim=-1))
-        else:
-            start = int(towards_idx) * w
-            prior = torch.sigmoid(prior_param[..., start:start + w])
-        raydrop = prior + (1.0 - prior) * raydrop
+        with span("render.prior"):
+            w = prior_param.shape[-1] // 2
+            if full360:
+                # stitched layout (breaks 0, w//2, w//2 + w, 2w): the back
+                # half splits at w - w//2 (not w//2: the two differ for odd
+                # w, such as KITTI's 515)
+                front = prior_param[..., :w]
+                back = prior_param[..., w:]
+                split = w - w // 2
+                prior = torch.sigmoid(torch.cat(
+                    [back[..., split:], front, back[..., :split]], dim=-1))
+            else:
+                start = int(towards_idx) * w
+                prior = torch.sigmoid(prior_param[..., start:start + w])
+            raydrop = prior + (1.0 - prior) * raydrop
 
     depth_mean = out.depth[0:1]
     depth_median = out.depth[1:2]

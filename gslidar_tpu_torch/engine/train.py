@@ -30,6 +30,8 @@ from gslidar_tpu_torch.models.raydrop_prior import PriorAdam
 from gslidar_tpu_torch.raster.preprocess import build_transmat
 from gslidar_tpu_torch.raster.rasterize import densify_grads_from_T_tap
 from gslidar_tpu_torch.raster.settings import RasterSettings
+from gslidar_tpu_torch.utils.trace import (backward_begins, backward_boundary,
+                                           count, span)
 
 
 class CameraBatch(NamedTuple):
@@ -110,51 +112,73 @@ def make_train_step(args, cfg: G.GaussianConfig, settings: RasterSettings,
     gradient and the prior's (``"prior"``). ``stats_on`` gates the
     densification statistics; ``apply_update=False`` skips the gaussians'
     Adam (the reference's densify iterations, train.py:356-375); the prior
-    always steps."""
+    always steps.
+
+    Each step counts ``train_steps``. Its spans: ``step``, and inside it
+    ``step.render``, ``step.losses``, ``step.backward`` (the
+    ``torch.autograd.grad`` call; beneath it, on autograd's thread,
+    ``bwd.losses``, ``bwd.render`` and ``bwd.activations``),
+    ``step.stats``, ``step.adam`` and ``step.prior_adam``."""
     dynamic = bool(args.dynamic)
     median_depth = bool(args.get("median_depth", False))
     sf = float(args.scale_factor)
 
+    @span("step")
     def train_step(state: TrainState, cam: CameraBatch, iteration,
                    sh_degree, time_shift, stats_on, apply_update=True):
+        count("train_steps")
         params = {k: v.detach().requires_grad_(True)
                   for k, v in state.params.items()}
         prior = state.prior.detach().requires_grad_(True)
         n = state.aux.alive.shape[0]
         T_tap = torch.zeros(n, 3, 3, device=prior.device,
                             requires_grad=True)
-        pkg = render(params, state.aux.alive, cam.viewmat, cam.campos,
-                     cam.timestamp, cam.towards_idx, prior, bg, sh_degree, sf,
-                     cfg, settings, dynamic=dynamic,
-                     median_depth=median_depth, time_shift=time_shift,
-                     T_tap=T_tap)
-        opa = G.get_opacity(params)[:, 0]
-        loss, log = compute_losses(pkg, cam.pts_depth, cam.pts_intensity,
-                                   iteration, args, opa,
-                                   state.aux.alive.to(torch.float32))
+        with span("step.render"):
+            pkg = render(params, state.aux.alive, cam.viewmat, cam.campos,
+                         cam.timestamp, cam.towards_idx, prior, bg, sh_degree,
+                         sf, cfg, settings, dynamic=dynamic,
+                         median_depth=median_depth, time_shift=time_shift,
+                         T_tap=T_tap)
+        with span("step.losses"):
+            opa = G.get_opacity(params)[:, 0]
+            loss, log = compute_losses(pkg, cam.pts_depth, cam.pts_intensity,
+                                       iteration, args, opa,
+                                       state.aux.alive.to(torch.float32))
         keys = list(params)
-        grads = torch.autograd.grad(loss, [params[k] for k in keys]
-                                    + [prior, T_tap], allow_unused=True)
+        # the backward by layer, while a profiler records: the losses, the
+        # render from its outputs, the activations from the rasterizer's
+        # inputs (``render``) to the end
+        backward_begins(loss, "bwd.losses")
+        backward_boundary(pkg, "bwd.render")
+        with span("step.backward"):
+            grads = torch.autograd.grad(loss, [params[k] for k in keys]
+                                        + [prior, T_tap], allow_unused=True)
         gp = {k: torch.zeros_like(params[k]) if g is None else g
               for k, g in zip(keys, grads)}
         gprior, gtap = grads[-2], grads[-1]
 
         with torch.no_grad():
             # densification statistics (reference train.py:356-362)
-            vs_grad = densify_grads_from_T_tap(gtap, _transmat_for_stats(
-                state.params, cam.viewmat, cfg, cam.timestamp, time_shift),
-                settings)
-            aux = state.aux
-            if stats_on:
-                aux = add_densification_stats(aux, vs_grad, gp["t"],
-                                              pkg.radii, pkg.visibility)
-            if apply_update:
-                new_params, new_opt = adam_step(
-                    state.params, gp, state.opt, group_lrs(args, iteration))
-            else:
-                new_params, new_opt = state.params, state.opt
-            new_prior, new_prior_opt = PriorAdam.step(
-                state.prior, gprior, state.prior_opt, args.raydrop_prior_lr)
+            with span("step.stats"):
+                vs_grad = densify_grads_from_T_tap(
+                    gtap, _transmat_for_stats(state.params, cam.viewmat, cfg,
+                                              cam.timestamp, time_shift),
+                    settings)
+                aux = state.aux
+                if stats_on:
+                    aux = add_densification_stats(aux, vs_grad, gp["t"],
+                                                  pkg.radii, pkg.visibility)
+            with span("step.adam"):
+                if apply_update:
+                    new_params, new_opt = adam_step(
+                        state.params, gp, state.opt,
+                        group_lrs(args, iteration))
+                else:
+                    new_params, new_opt = state.params, state.opt
+            with span("step.prior_adam"):
+                new_prior, new_prior_opt = PriorAdam.step(
+                    state.prior, gprior, state.prior_opt,
+                    args.raydrop_prior_lr)
         log = {k: v.detach() if torch.is_tensor(v) else v
                for k, v in log.items()}
         log["num_pairs"] = pkg.num_pairs

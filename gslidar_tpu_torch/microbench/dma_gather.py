@@ -35,6 +35,7 @@ import torch
 
 from gslidar_tpu_torch.microbench import bounds
 from gslidar_tpu_torch.microbench.timing import entry_device, time_ms
+from gslidar_tpu_torch.utils.trace import count
 
 ROWS = 1_000_000
 WIDTH = 128
@@ -77,8 +78,8 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]``: [K, D] float32.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on
-    the current stream (``gather_rows.launches`` counts those launches);
-    any other device raises.
+    the current stream (the counter ``launches.gather_rows`` counts those
+    launches); any other device raises.
     """
     _check_inputs(table, ids)
     P, D = table.shape
@@ -101,11 +102,8 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"gather_rows kernel launch failed: CUDA error "
                            f"{err}")
-    gather_rows.launches += 1
+    count("launches.gather_rows")
     return out
-
-
-gather_rows.launches = 0
 
 
 def run(device, rows=ROWS, width=WIDTH, n_ids=IDS, seed=SEED, reps=REPS):

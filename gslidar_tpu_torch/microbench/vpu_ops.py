@@ -35,6 +35,7 @@ import torch
 
 from gslidar_tpu_torch.microbench import bounds
 from gslidar_tpu_torch.microbench.timing import entry_device, median_ms
+from gslidar_tpu_torch.utils.trace import count
 
 SUB, LANE = 256, 512
 STEPS = 64
@@ -190,8 +191,8 @@ def op_chain(x: torch.Tensor, case: str, steps: int = STEPS) -> torch.Tensor:
     """The chain of ``case`` on the [256, cols] block x.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on
-    the current stream (``op_chain.launches`` counts those launches); any
-    other device raises.
+    the current stream (the counter ``launches.op_chain`` counts those
+    launches); any other device raises.
     """
     _check_inputs(x, case, steps)
     if x.device.type == "cpu":
@@ -211,11 +212,8 @@ def op_chain(x: torch.Tensor, case: str, steps: int = STEPS) -> torch.Tensor:
                                    torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"op_chain kernel launch failed: CUDA error {err}")
-    op_chain.launches += 1
+    count("launches.op_chain")
     return out
-
-
-op_chain.launches = 0
 
 
 def slope(x, case, reps=REPS, steps_hi=STEPS_HI):

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from gslidar_tpu_torch.models.gaussians import PARAM_KEYS, Params
+from gslidar_tpu_torch.utils.trace import span
 
 B1, B2, EPS = 0.9, 0.999, 1e-15
 
@@ -85,18 +86,20 @@ def group_lrs(args, iteration) -> Dict[str, float]:
 
 def adam_step(params: Params, grads: Params, state: AdamState,
               lrs: Dict[str, float]) -> tuple[Params, AdamState]:
-    """One Adam step of every group; returns new tensors."""
+    """One Adam step of every group, each in a span ``adam.<group>``;
+    returns new tensors."""
     count = state.count + 1
     c1 = 1.0 - B1 ** count
     c2 = 1.0 - B2 ** count
     new_p, new_mu, new_nu = {}, {}, {}
     for k in PARAM_KEYS:
-        g = grads[k]
-        mu = B1 * state.mu[k] + (1 - B1) * g
-        nu = B2 * state.nu[k] + (1 - B2) * g * g
-        update = (mu / c1) / (torch.sqrt(nu / c2) + EPS)
-        new_p[k] = params[k] - lrs[k] * update
-        new_mu[k], new_nu[k] = mu, nu
+        with span("adam." + k):
+            g = grads[k]
+            mu = B1 * state.mu[k] + (1 - B1) * g
+            nu = B2 * state.nu[k] + (1 - B2) * g * g
+            update = (mu / c1) / (torch.sqrt(nu / c2) + EPS)
+            new_p[k] = params[k] - lrs[k] * update
+            new_mu[k], new_nu[k] = mu, nu
     return new_p, AdamState(mu=new_mu, nu=new_nu, count=count)
 
 

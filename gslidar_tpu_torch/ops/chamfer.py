@@ -8,6 +8,11 @@ from the coordinate differences, so its gradient is the exact 2(a - b)
 of the CUDA backward (chamfer3D.cu:167-196). The points come masked, as
 fixed-size [H*W, 3] panorama clouds; only the valid ones are compared.
 ``fscore`` is the F-score the eval meters report (chamfer/fscore.py).
+
+The boolean selections read each mask's count on the host, and so do
+their gradients in the backward: ``chamfer_distance`` counts each as a
+host sync (``utils/trace.py``: ``chamfer_mask``, ``chamfer_index_bwd``,
+``chamfer_scatter_bwd``).
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from gslidar_tpu_torch.raster.preprocess import check_full_f32_matmul
+from gslidar_tpu_torch.utils.trace import count_sync, host_sync
 
 
 def _one_sided_min_sqdist(a, b, chunk: int):
@@ -48,11 +54,22 @@ def chamfer_distance(x1, x2, mask1=None, mask2=None, chunk: int = 4096):
         mask1 = torch.ones(x1.shape[0], dtype=torch.bool, device=x1.device)
     if mask2 is None:
         mask2 = torch.ones(x2.shape[0], dtype=torch.bool, device=x2.device)
-    a, b = x1[mask1], x2[mask2]
-    d1 = x1.new_zeros(x1.shape[0]).masked_scatter(
-        mask1, _one_sided_min_sqdist(a, b, chunk))
-    d2 = x2.new_zeros(x2.shape[0]).masked_scatter(
-        mask2, _one_sided_min_sqdist(b, a, chunk))
+    with host_sync("chamfer_mask", 2):
+        a, b = x1[mask1], x2[mask2]
+    s1 = _one_sided_min_sqdist(a, b, chunk)
+    d1 = x1.new_zeros(x1.shape[0]).masked_scatter(mask1, s1)
+    s2 = _one_sided_min_sqdist(b, a, chunk)
+    d2 = x2.new_zeros(x2.shape[0]).masked_scatter(mask2, s2)
+    if torch.is_grad_enabled():
+        # the backward's reads: each selection's gradient goes through
+        # index_put_ with its boolean mask, each masked_scatter's is a
+        # masked_select; both take a nonzero
+        n_index = int(a.requires_grad) + int(b.requires_grad)
+        n_scatter = int(s1.requires_grad) + int(s2.requires_grad)
+        if n_index:
+            count_sync("chamfer_index_bwd", n_index)
+        if n_scatter:
+            count_sync("chamfer_scatter_bwd", n_scatter)
     n1 = torch.clamp_min(mask1.sum(), 1)
     n2 = torch.clamp_min(mask2.sum(), 1)
     return d1, d2, d1.sum() / n1, d2.sum() / n2

@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from gslidar_tpu_torch.raster.settings import FAR_N, NEAR_N, RasterSettings
+from gslidar_tpu_torch.utils.trace import count, host_sync, span
 
 
 class Binning(NamedTuple):
@@ -82,12 +83,15 @@ def sort_instances(gid, key, settings: RasterSettings):
     return gid[perm], tile_s, tile_starts.to(torch.int32)
 
 
+@span("binning")
 def bin_gaussians(rect_min, rect_max, depth, tiles_touched, scale_factor,
                   settings: RasterSettings,
                   payload: Optional[torch.Tensor] = None) -> Binning:
     """Duplicate gaussians into per-tile instance lists sorted by
     (tile, quantized depth): the host sync of the total, the expansion,
-    the sort and the payload gather.
+    the sort and the payload gather, each in a span of its own
+    (``sync.binning``, ``binning.expand``, ``binning.sort``,
+    ``binning.gather``); the instances are counted (``instances``).
 
     Args:
         rect_min, rect_max: [P, 2] int tile rects (x wraps mod tiles_x
@@ -96,14 +100,20 @@ def bin_gaussians(rect_min, rect_max, depth, tiles_touched, scale_factor,
         tiles_touched: [P] int instance count per gaussian.
         payload: optional [P, D] rows, gathered once into sorted order.
     """
-    total = int(tiles_touched.to(torch.int64).sum())     # the one host sync
-    gid, key = expand_instances(rect_min, rect_max, depth, tiles_touched,
-                                total, scale_factor, settings)
-    gid_s, tile_s, tile_starts = sort_instances(gid, key, settings)
+    with host_sync("binning"):
+        total = int(tiles_touched.to(torch.int64).sum())  # the one host sync
+    count("instances", total)
+    with span("binning.expand"):
+        gid, key = expand_instances(rect_min, rect_max, depth, tiles_touched,
+                                    total, scale_factor, settings)
+    with span("binning.sort"):
+        gid_s, tile_s, tile_starts = sort_instances(gid, key, settings)
+    with span("binning.gather"):
+        rows = payload[gid_s] if payload is not None else None
     return Binning(
         gid_sorted=gid_s,
         tile_sorted=tile_s,
         tile_starts=tile_starts,
         num_pairs=total,
-        data_rows=payload[gid_s] if payload is not None else None,
+        data_rows=rows,
     )

@@ -54,6 +54,7 @@ from gslidar_tpu_torch.raster.composite_fwd import (Checkpoints,
                                                     tile_grid)
 from gslidar_tpu_torch.raster.settings import (FILTER_INV_SQUARE, MAX_ALPHA,
                                                RasterSettings, T_STOP)
+from gslidar_tpu_torch.utils.trace import count, span
 
 MAX_BLEND_BWD = 14   # C + S the kernel reduces (csrc MAX_BLEND_BWD)
 
@@ -305,6 +306,7 @@ def _check_cts(cts, fwd: CompositeOut, settings: RasterSettings, C, S, dev):
                          f"{pix}")
 
 
+@span("composite.bwd")
 def composite_backward(rows: torch.Tensor, tile_starts: torch.Tensor,
                        fwd: CompositeOut, cts, params,
                        settings: RasterSettings, C: int, S: int,
@@ -314,8 +316,9 @@ def composite_backward(rows: torch.Tensor, tile_starts: torch.Tensor,
     ``cts`` is (gC, gF, gD4, gT); ``ckpt`` the checkpoints the forward
     wrote (``composite_forward(..., ckpt=new_checkpoints(...))``), which
     the kernel needs. CPU tensors run the plain version; CUDA tensors
-    launch the kernel on the current stream (``composite_backward.launches``
-    counts those launches); any other device raises.
+    launch the kernel on the current stream (the counter
+    ``launches.composite_bwd`` counts those launches); any other device
+    raises.
     """
     _check_inputs(rows, tile_starts, settings, C, S)
     _check_cts(cts, fwd, settings, C, S, rows.device)
@@ -355,8 +358,5 @@ def composite_backward(rows: torch.Tensor, tile_starts: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"composite_bwd kernel launch failed: CUDA error "
                            f"{err}")
-    composite_backward.launches += 1
+    count("launches.composite_bwd")
     return grad
-
-
-composite_backward.launches = 0

@@ -35,6 +35,7 @@ from gslidar_tpu_torch.raster.settings import (ALPHA_EPS, FAR_N,
                                                FILTER_INV_SQUARE, MAX_ALPHA,
                                                NEAR_N, RasterSettings,
                                                T_STOP)
+from gslidar_tpu_torch.utils.trace import count, span
 
 PAYLOAD_BASE = 10    # 9 T columns + opacity, then C colors and S features
 MAX_BLEND = 16       # C + S the kernel accumulates (csrc MAX_BLEND)
@@ -97,6 +98,7 @@ def new_checkpoints(tile_starts: torch.Tensor, n_rows: int,
                        chunk_off=chunk_offsets(tile_starts, settings))
 
 
+@span("pack_payload")
 def pack_payload(prep, opacity, features):
     """[P, 10 + C + S] per-gaussian payload rows (the columns of T are
     component triples, forward.cu:385-387)."""
@@ -418,6 +420,7 @@ PART_BASE = 12       # a batch's local sums besides the C + S channels
                      # (csrc Part)
 
 
+@span("composite.fwd")
 def composite_forward(rows: torch.Tensor, tile_starts: torch.Tensor, params,
                       settings: RasterSettings, C: int, S: int,
                       ckpt: Checkpoints | None = None) -> CompositeOut:
@@ -426,8 +429,9 @@ def composite_forward(rows: torch.Tensor, tile_starts: torch.Tensor, params,
     With ``ckpt`` (``new_checkpoints``), the walk also writes its
     checkpoints there, for the backward kernel; the outputs are the same
     bit for bit. CPU tensors run the plain version; CUDA tensors launch
-    the kernel's passes on the current stream (``composite_forward.launches``
-    counts those forwards); any other device raises.
+    the kernel's passes on the current stream (the counter
+    ``launches.composite_fwd`` counts those forwards); any other device
+    raises.
     """
     _check_inputs(rows, tile_starts, settings, C, S)
     if ckpt is not None:
@@ -479,8 +483,5 @@ def composite_forward(rows: torch.Tensor, tile_starts: torch.Tensor, params,
     if err != 0:
         raise RuntimeError(f"composite_fwd kernel launch failed: CUDA error "
                            f"{err}")
-    composite_forward.launches += 1
+    count("launches.composite_fwd")
     return out
-
-
-composite_forward.launches = 0

@@ -20,7 +20,8 @@ gradient (pallas_op.py:100-103).
   sorted instance, and the per-gaussian reduction sums each gaussian's
   rows: ``zeros(P, D).index_add_(0, gid_sorted, table)``. The JAX package
   did that reduction in XLA outside any Pallas kernel
-  (``segment_sum_runs``). On the card ``index_add_`` uses float atomics,
+  (``segment_sum_runs``); its span is ``composite.reduce``, the
+  kernel's ``composite.bwd``. On the card ``index_add_`` uses float atomics,
   so the per-gaussian gradients are not bitwise repeatable from run to
   run (the per-instance table is).
 """
@@ -35,6 +36,7 @@ from gslidar_tpu_torch.raster.composite_fwd import (Checkpoints,
                                                     CompositeOut,
                                                     composite_forward,
                                                     new_checkpoints)
+from gslidar_tpu_torch.utils.trace import span
 
 
 class CompositeOp(torch.autograd.Function):
@@ -81,5 +83,6 @@ class CompositeOp(torch.autograd.Function):
             rows, tile_starts, fwd,
             (ct(gC, fwd.color), ct(gF, fwd.feature), ct(gD4, fwd.depth), gT),
             params, settings, C, S, Checkpoints(state, chunk_off))
-        grad = rows.new_zeros(P, rows.shape[1]).index_add_(0, gid, table)
+        with span("composite.reduce"):
+            grad = rows.new_zeros(P, rows.shape[1]).index_add_(0, gid, table)
         return (grad,) + (None,) * 10

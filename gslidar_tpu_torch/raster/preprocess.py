@@ -28,6 +28,7 @@ from gslidar_tpu_torch.ops.sh import active_coeffs, eval_sh, eval_sh_backward
 from gslidar_tpu_torch.raster.settings import (FILTER_INV_SQUARE,
                                                FRUSTUM_MARGIN, NEAR_N,
                                                RasterSettings)
+from gslidar_tpu_torch.utils.trace import count, span
 
 
 def check_full_f32_matmul(device) -> None:
@@ -586,7 +587,7 @@ def _preprocess_kernel(means3D, scales, quats, opacity, shs, colors_precomp,
                 ca.data_ptr(), *(x.data_ptr() for x in out[:4]),
                 None if shs is None else out.color.data_ptr(),
                 *(x.data_ptr() for x in out[5:]), _ptr(clamped))
-        preprocess.launches += 1
+        count("launches.preprocess_fwd")
     return out, clamped
 
 
@@ -617,7 +618,7 @@ def _preprocess_backward_kernel(means3D, scales, quats, shs, viewmat, campos,
                 None if shs is None else dcolor.data_ptr(),
                 dmeans.data_ptr(), dscales.data_ptr(), dquats.data_ptr(),
                 _ptr(dshs))
-        preprocess.backward_launches += 1
+        count("launches.preprocess_bwd")
     return dmeans, dscales, dquats, dshs
 
 
@@ -661,6 +662,7 @@ class PreprocessFn(torch.autograd.Function):
         return tuple(out)
 
     @staticmethod
+    @span("preprocess.bwd")
     def backward(ctx, dT, dxy, ddepth, dnormal, dcolor, *_):
         means3D, scales, quats, shs, viewmat, campos, clamped = \
             ctx.saved_tensors
@@ -677,6 +679,7 @@ class PreprocessFn(torch.autograd.Function):
                 None, None, None, None)
 
 
+@span("preprocess")
 def preprocess(means3D, scales, quats, opacity, shs, mask, viewmat, campos,
                sh_degree, scale_factor, settings: RasterSettings,
                scale_modifier=1.0, colors_precomp=None,
@@ -684,9 +687,9 @@ def preprocess(means3D, scales, quats, opacity, shs, mask, viewmat, campos,
     """Full preprocess pass (reference forward.cu:174-287), arguments as
     ``preprocess_reference``'s, through ``PreprocessFn``: float32 CPU
     tensors run the plain versions, float32 CUDA tensors launch the
-    kernels (``preprocess.launches`` counts the forwards,
-    ``preprocess.backward_launches`` the backwards); any other device or
-    dtype raises."""
+    kernels (the counters ``launches.preprocess_fwd`` and
+    ``launches.preprocess_bwd`` count them); any other device or dtype
+    raises."""
     dev = means3D.device.type
     if dev not in ("cpu", "cuda"):
         raise ValueError(f"preprocess runs on cpu or cuda tensors, not "
@@ -703,6 +706,3 @@ def preprocess(means3D, scales, quats, opacity, shs, mask, viewmat, campos,
                          float(scale_modifier), angle_bounds, cull_bounds))
     return PreprocessOut(*out)
 
-
-preprocess.launches = 0
-preprocess.backward_launches = 0

@@ -340,6 +340,8 @@ def training(args, device, init_params=None, on_step=None, on_event=None,
     try:
         for iteration in range(first_iter + 1, args.iterations + 1):
             vis_mgr.checkin()
+            # ``profile_iter``: a chrome trace of 5 iterations, the port's
+            # ``gs.`` spans (utils/trace.py) among the ops and kernels
             if profile_at and iteration == profile_at:
                 from torch.profiler import ProfilerActivity, profile
                 prof = profile(activities=[ProfilerActivity.CPU] + (

@@ -514,13 +514,14 @@ def _rows(ts, n=64, seed=0):
 
 def test_wrapper_cpu_runs_the_plain_version():
     from gslidar_tpu_torch.raster import composite_fwd as cf
+    from gslidar_tpu_torch.utils.trace import counters
     _, ts = settings_pair()
     rows, starts = _rows(ts)
     params = cf.make_params(1.0, ts)
-    before = cf.composite_forward.launches
+    before = counters().get("launches.composite_fwd", 0)
     a = cf.composite_forward(rows, starts, params, ts, 4, 2)
     b = cf.composite_forward_reference(rows, starts, params, ts, 4, 2)
-    assert cf.composite_forward.launches == before
+    assert counters().get("launches.composite_fwd", 0) == before
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     assert a.color.shape == (4, ts.height, ts.width)
@@ -563,6 +564,7 @@ def test_kernel_matches_plain_on_card(cuda_device):
     from gslidar_tpu_torch.raster.binning import bin_gaussians
     from gslidar_tpu_torch.raster.preprocess import preprocess
     from gslidar_tpu_torch.raster.rasterize import rasterize
+    from gslidar_tpu_torch.utils.trace import counters
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(6)
     sc = {k: torch.as_tensor(v, device=cuda_device) for k, v in
@@ -575,12 +577,12 @@ def test_kernel_matches_plain_on_card(cuda_device):
                       prep.tiles_touched, 1.0, ts,
                       payload=cf.pack_payload(prep, sc["opac"], sc["feats"]))
     params = cf.make_params(1.0, ts)
-    before = cf.composite_forward.launches
+    before = counters().get("launches.composite_fwd", 0)
     k = cf.composite_forward(b.data_rows, b.tile_starts, params, ts, 4, 2)
     p = cf.composite_forward_reference(b.data_rows, b.tile_starts, params,
                                        ts, 4, 2)
     torch.cuda.synchronize()
-    assert cf.composite_forward.launches == before + 1
+    assert counters().get("launches.composite_fwd", 0) == before + 1
     keep = k.misc[1] == p.misc[1]
     assert keep.float().mean() >= 0.999
     for a_ in k:
@@ -590,15 +592,16 @@ def test_kernel_matches_plain_on_card(cuda_device):
         assert float((a_ - b_).abs()[:, keep].max()) <= 1e-4
     inputs = [sc[k].clone().requires_grad_(True)
               for k in ("means", "scales", "quats", "opac", "shs", "feats")]
-    fwd0, bwd0 = cf.composite_forward.launches, cb.composite_backward.launches
+    fwd0 = counters().get("launches.composite_fwd", 0)
+    bwd0 = counters().get("launches.composite_bwd", 0)
     out = rasterize(*inputs, sc["mask"], sc["viewmat"], sc["campos"],
                     torch.zeros(4, device=cuda_device), 3, 1.0, ts)
     loss = (out.color.square().sum() + 0.1 * out.depth.sum()
             + 0.05 * out.feature.sum() + 0.3 * out.alpha.sum())
     grads = torch.autograd.grad(loss, inputs)
     torch.cuda.synchronize()
-    assert cf.composite_forward.launches == fwd0 + 1
-    assert cb.composite_backward.launches == bwd0 + 1
+    assert counters().get("launches.composite_fwd", 0) == fwd0 + 1
+    assert counters().get("launches.composite_bwd", 0) == bwd0 + 1
     for g in grads:
         assert torch.isfinite(g).all() and float(g.abs().max()) > 0
 

@@ -301,12 +301,13 @@ def _small_case():
 
 def test_wrapper_cpu_runs_the_plain_version():
     from gslidar_tpu_torch.raster import composite_bwd as cb
+    from gslidar_tpu_torch.utils.trace import counters
     rows, starts, fwd, cts, params, ts = _small_case()
-    before = cb.composite_backward.launches
+    before = counters().get("launches.composite_bwd", 0)
     a = cb.composite_backward(rows, starts, fwd, cts, params, ts, 4, 2)
     b = cb.composite_backward_reference(rows, starts, fwd, cts, params, ts,
                                         4, 2)
-    assert cb.composite_backward.launches == before
+    assert counters().get("launches.composite_bwd", 0) == before
     assert torch.equal(a, b) and a.shape == rows.shape
 
 
@@ -348,6 +349,7 @@ def test_backward_kernel_matches_plain_on_card(cuda_device):
     column's largest magnitude), one counted launch, a finite table."""
     from gslidar_tpu_torch.raster import composite_bwd as cb
     from gslidar_tpu_torch.raster import composite_fwd as cf
+    from gslidar_tpu_torch.utils.trace import counters
     torch.backends.cuda.matmul.allow_tf32 = False
     sc, _, ts = _scene("seam")
     rows, starts = _rows(sc, ts)
@@ -356,13 +358,13 @@ def test_backward_kernel_matches_plain_on_card(cuda_device):
     ckpt = cf.new_checkpoints(starts, rows.shape[0], ts, 4)
     fwd = cf.composite_forward(rows, starts, params, ts, 4, 2, ckpt)
     cts = [x.to(cuda_device) for x in _cotangents(ts, 4, 2, 5)]
-    before = cb.composite_backward.launches
+    before = counters().get("launches.composite_bwd", 0)
     k = cb.composite_backward(rows, starts, fwd, cts, params, ts, 4, 2,
                               ckpt)
     p = cb.composite_backward_reference(rows, starts, fwd, cts, params, ts,
                                         4, 2)
     torch.cuda.synchronize()
-    assert cb.composite_backward.launches == before + 1
+    assert counters().get("launches.composite_bwd", 0) == before + 1
     assert torch.isfinite(k).all()
     assert _col_err(k.cpu(), p.cpu()).max() <= 1e-4
     with pytest.raises(ValueError):         # the kernel needs checkpoints

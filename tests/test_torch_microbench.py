@@ -34,6 +34,7 @@ import pytest
 import torch
 
 from gslidar_tpu_torch.microbench import bounds, dma_gather, timing, vpu_ops
+from gslidar_tpu_torch.utils.trace import counters
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -475,10 +476,10 @@ def test_gather_kernel_matches_plain_on_card(cuda_device):
             flat[shift:] = table.reshape(-1)
             table = flat[shift:].view(P, D)
             assert table.data_ptr() % 16 == 4 * shift
-        n = dma_gather.gather_rows.launches
+        n = counters().get("launches.gather_rows", 0)
         out = dma_gather.gather_rows(table, ids)
         torch.cuda.synchronize()
-        assert dma_gather.gather_rows.launches == n + 1
+        assert counters().get("launches.gather_rows", 0) == n + 1
         assert torch.equal(out, dma_gather.gather_rows_reference(table, ids))
 
 
@@ -490,10 +491,11 @@ def test_op_chains_match_plain_on_card(cuda_device, cols):
     for case in vpu_ops.CASES:
         for dtype in vpu_ops.DTYPES:
             x = vpu_ops.base_block(cuda_device, dtype)[:, :cols].contiguous()
-            n = vpu_ops.op_chain.launches
+            n = counters().get("launches.op_chain", 0)
             results = vpu_ops.check(x, case)
             torch.cuda.synchronize()
-            assert vpu_ops.op_chain.launches == n + len(vpu_ops.CHECK_STEPS)
+            assert counters().get("launches.op_chain", 0) == \
+                n + len(vpu_ops.CHECK_STEPS)
             assert all(r["ok"] for r in results), (case, dtype, results)
 
 

@@ -31,6 +31,14 @@ torch.set_num_threads(2)
 GRAD_KEYS = ("means", "scales", "quats", "shs")
 
 
+def _prep_launches():
+    """The preprocess kernels' launches so far: [forward, backward]."""
+    from gslidar_tpu_torch.utils.trace import counters
+    c = counters()
+    return [c.get("launches.preprocess_fwd", 0),
+            c.get("launches.preprocess_bwd", 0)]
+
+
 def _scene(wrap, seed=21, P=384):
     sc = splat_scene(np.random.default_rng(seed + wrap), P=P, wrap=wrap)
     js, ts = settings_pair(wrap=wrap,
@@ -198,9 +206,9 @@ def test_rasterize_grads_through_function(wrap, colors, monkeypatch):
                         g)), out
 
     want, out_p = grads(preprocess_reference)
-    before = (preprocess.launches, preprocess.backward_launches)
+    before = _prep_launches()
     got, out_f = grads(preprocess)
-    assert (preprocess.launches, preprocess.backward_launches) == before
+    assert _prep_launches() == before
     assert out_f.num_pairs == out_p.num_pairs > 0
     assert torch.equal(out_f.color, out_p.color)
     assert torch.equal(out_f.radii, out_p.radii)
@@ -266,7 +274,7 @@ def test_kernels_match_plain_on_card(cuda_device):
     args = (t["means"], t["scales"], t["quats"], t["opac"], t["shs"],
             t["mask"], t["viewmat"], t["campos"], 3, 1.0, ts)
     leaves = [t[k].clone().requires_grad_(True) for k in GRAD_KEYS]
-    before = (pp.preprocess.launches, pp.preprocess.backward_launches)
+    before = _prep_launches()
     out = pp.preprocess(leaves[0], leaves[1], leaves[2], t["opac"],
                         leaves[3], *args[5:])
     plain, _ = pp._preprocess_plain(*args)
@@ -281,8 +289,7 @@ def test_kernels_match_plain_on_card(cuda_device):
     dT, dc = (torch.as_tensor(x, device=cuda_device)
               for x in _cotangents(4096, 4, 72))
     got = torch.autograd.grad([out.T, out.color], leaves, [dT, dc])
-    assert (pp.preprocess.launches, pp.preprocess.backward_launches) == \
-        (before[0] + 1, before[1] + 1)
+    assert _prep_launches() == [before[0] + 1, before[1] + 1]
     # the kernel's clamp mask: its colors that the clamp set to 0
     want = pp.preprocess_backward_reference(
         t["means"], t["scales"], t["quats"], t["shs"], t["viewmat"],
