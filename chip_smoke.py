@@ -58,7 +58,7 @@ failing phase raises:
    6 steps of the same seeded 1M-gaussian model on the Synthetic scene at
    kitti360_nvs_1908's shape (66x515 half panoramas, its lambdas and
    learning rates); each step must launch the forward and the backward
-   compositor and the preprocess forward and backward kernels exactly
+   compositor, the preprocess and the chamfer kernels exactly
    once each (``launch_counts``), give a finite loss and finite
    gradients, and every
    param group with a gradient and a learning rate, and the prior, must
@@ -249,14 +249,28 @@ failing phase raises:
    without). It prints renders/s at 1M and 10M, the step's ms and idle
    share, each stage's ms, the per-tile statistics and the bench path's
    launches;
-16. the result: the card's nvidia-smi line, one JSON line of the six
-   kernels (the compositors and the preprocess pair with their launches
-   on each path), and the last line ``{"ok": true, "device": {...}}``.
+16. the chamfer kernel pair (``ops/chamfer.py``, ``csrc/chamfer.cu``) on
+   a training step's two 66x515 panorama clouds, ~10 % of each invalid
+   (``chamfer_clouds``): the forward and the backward kernel, the whole
+   op forward and backward (with its means) and the plain version's
+   forward and backward timed in turns (CUDA events, median of 10 each),
+   beside each kernel's ``chamfer_bound``; the op's distances within 4
+   ulps of the plain version's on all but 0.1 % of the points (a
+   near-tie's pick may differ) and never farther, its means within 1e-6,
+   and its gradient rows within 1e-5 of the largest on all but 0.1 % of
+   the points; one launch of each kernel per op call (``run_chamfer``);
+17. the result: the card's nvidia-smi line, one JSON line of the eight
+   kernels (the compositors, the preprocess pair and the chamfer pair
+   with their launches on each path), and the last line
+   ``{"ok": true, "device": {...}}``.
 
 Wherever a phase counts the compositors' launches it counts the
-preprocess kernels' too (``launch_counts``) and holds them to the same
-numbers: one preprocess forward per render, camera, slice, eval pair and
-viewer render, one backward per step and DP camera.
+preprocess and chamfer kernels' too (``launch_counts``) and holds them to
+set numbers: one preprocess forward per render, camera, slice, eval pair
+and viewer render, one backward per step and DP camera; one chamfer
+forward and backward per step and DP camera (and per ``bench_train_step``
+step in phase 15), a forward per eval pair's PointsMeter, none per
+render.
 
 Tolerances, forward kernel vs plain: color, features, normal, alpha and
 final T at atol 1e-4; mean depth and sum w*d^2 at rtol 1e-4 + atol 1e-3;
@@ -352,19 +366,23 @@ def say(phase, msg):
 
 # the counters of ``launch_counts``, in its order
 LAUNCH_COUNTERS = ("launches.composite_fwd", "launches.composite_bwd",
-                   "launches.preprocess_fwd", "launches.preprocess_bwd")
+                   "launches.preprocess_fwd", "launches.preprocess_bwd",
+                   "launches.chamfer_fwd", "launches.chamfer_bwd")
+# one training step's: one of each
+ONE_STEP = (1,) * len(LAUNCH_COUNTERS)
 
 
 def launch_counts():
     """The kernel launches counted so far: (compositor forward, compositor
-    backward, preprocess forward, preprocess backward)."""
+    backward, preprocess forward, preprocess backward, chamfer forward,
+    chamfer backward)."""
     from gslidar_tpu_torch.utils.trace import counters
     c = counters()
     return tuple(c.get(k, 0) for k in LAUNCH_COUNTERS)
 
 
-def set_launch_counts(counts=(0, 0, 0, 0)):
-    """Set the four counts of ``launch_counts`` (0 by default)."""
+def set_launch_counts(counts=(0,) * len(LAUNCH_COUNTERS)):
+    """Set the six counts of ``launch_counts`` (0 by default)."""
     from gslidar_tpu_torch.utils.trace import count
     for k, want, now in zip(LAUNCH_COUNTERS, counts, launch_counts()):
         count(k, want - now)
@@ -372,13 +390,14 @@ def set_launch_counts(counts=(0, 0, 0, 0)):
 
 # one render without a gradient: one forward of the compositor and one of
 # the preprocess (``launch_counts``)
-ONE_RENDER = [1, 0, 1, 0]
+ONE_RENDER = [1, 0, 1, 0, 0, 0]
 
 
 def launches_text(counts):
-    """The four counts of ``launch_counts`` in words."""
+    """The six counts of ``launch_counts`` in words."""
     return (f"compositor forward {counts[0]}, backward {counts[1]}, "
-            f"preprocess forward {counts[2]}, backward {counts[3]}")
+            f"preprocess forward {counts[2]}, backward {counts[3]}, "
+            f"chamfer forward {counts[4]}, backward {counts[5]}")
 
 
 class Args(dict):
@@ -1256,7 +1275,7 @@ def phase_main_path(device):
         if r["depth"].shape != (3, h, 2 * w) or \
                 r["raydrop"].shape != (1, h, 2 * w):
             raise RuntimeError(f"bad shapes {r['depth'].shape}")
-    if launches != (len(results), 0, len(results), 0):
+    if launches != (len(results), 0, len(results), 0, 0, 0):
         raise RuntimeError(f"kernel launches {launches_text(launches)} for "
                            f"{len(results)} 360-degree renders")
     gt = np.concatenate([r["gt_depth"][0] for r in results])
@@ -1473,7 +1492,8 @@ class StepLaunches:
     ``step()`` from the step's ``on_step`` hook, ``skip()`` from every
     event hook, whose launches (the loop's depth visualizations) go to
     ``other`` and not to the next step. ``per_step`` lists (compositor
-    forward, backward, preprocess forward, backward) per step."""
+    forward, backward, preprocess forward, backward, chamfer forward,
+    backward) per step."""
 
     def __init__(self):
         self.last = launch_counts()
@@ -1541,7 +1561,8 @@ def phase_train(device, init_params):
            f"at {HW[0]}x{HW[1]} | launches {launches_text(launches)}, per "
            f"step {per_step} (and {steps.other[0]} compositor and "
            f"{steps.other[2]} preprocess forwards of the loop's depth "
-           f"visualizations) | instances per "
+           f"visualizations and final eval, {steps.other[4]} chamfer "
+           f"forwards of its point meters) | instances per "
            f"step {counts} | loss {[round(x, 5) for x in losses]}"
            f" | gradients finite {finite} | moved "
            f"{sorted(k for k in moved if moved[k])}, prior {prior_moved}; "
@@ -1549,7 +1570,7 @@ def phase_train(device, init_params):
     # SH degree 0 until sh_increase_interval: f_rest has no gradient yet
     core = ("xyz", "f_dc", "opacity", "scaling", "rotation")
     shutil.rmtree(args.model_path, ignore_errors=True)   # its checkpoint
-    if (len(losses) != TRAIN_STEPS or any(d != (1, 1, 1, 1) for d in per_step)
+    if (len(losses) != TRAIN_STEPS or any(d != ONE_STEP for d in per_step)
             or not all(math.isfinite(x) for x in losses) or not finite
             or moved != expect or not prior_moved
             or not all(expect[k] for k in core)):
@@ -1825,7 +1846,7 @@ def phase_train_densify(device, init_params, smi):
              for it in (12, DENSIFY_ITERATIONS)}
     shutil.rmtree(run, ignore_errors=True)
     if (wrong or bad or len(losses) != DENSIFY_ITERATIONS
-            or any(d != (1, 1, 1, 1) for d in per_step + steps.per_step)
+            or any(d != ONE_STEP for d in per_step + steps.per_step)
             or 8 not in rec["densify"] or "reset" not in rec["events"][6]
             or "upscale" not in rec["events"][10]
             or rec.get("kernels_checked") != 9
@@ -2092,7 +2113,8 @@ def phase_eval_refine(args, params, alive, prior, smi):
             f"{ {k: round(v, 2) for k, v in peak.items()} }")
     shutil.rmtree(run, ignore_errors=True)
     n = sum(n_pairs)
-    if not (ok_f and launches == (n, 0, n, 0) and n_pairs == (2, 6)
+    # a pair's render, and a chamfer forward in each of its 3 PointsMeters
+    if not (ok_f and launches == (n, 0, n, 0, 3 * n, 0) and n_pairs == (2, 6)
             and finite and lp_ok and refine_ok and u_err <= 1e-4
             and sorted(results) == ["test", "train"]
             and saved_npy == {"gt": 8, "render_train": 6, "render_test": 2}
@@ -2417,7 +2439,7 @@ def phase_opv2v(smi, device, tree_kw=None, overrides=()):
         "full", "preview", "full again"))
     if (wrong or bad or len(losses) != OPV2V_ITERATIONS
             or n_points != args.num_pts or (n_train, n_test) != (48, 3)
-            or any(d != (1, 1, 1, 1) for d in per_step)
+            or any(d != ONE_STEP for d in per_step)
             or dens != [8, 12] or not shifted
             or not all(rec["moved"].get(k) for k in (
                 "velocity", "t", "scaling_t"))
@@ -2580,7 +2602,7 @@ def phase_dp_train(device, init_params, group, smi):
     shutil.rmtree(run, ignore_errors=True)
     core = ("xyz", "f_dc", "opacity", "scaling", "rotation")
     if (bad or len(losses) != DP_ITERATIONS
-            or any(d != (DP_CAMERAS,) * 4 for d in steps.per_step)
+            or any(d != (DP_CAMERAS,) * len(ONE_STEP) for d in steps.per_step)
             or any(r != 2 for r in reduces)
             or "densify" not in rec["events"].get(8, [])
             or "eval" not in rec["events"].get(DP_ITERATIONS, [])
@@ -2856,7 +2878,7 @@ def phase_sharded_renders(args, params, alive, cam, group, smi):
         captured[:] = [a]
         return fwd_orig[0](*a, **k)
 
-    results, bad, all_launches = {}, [], [0, 0, 0, 0]
+    results, bad, all_launches = {}, [], [0] * len(LAUNCH_COUNTERS)
     co.composite_forward = ps.composite_forward = fwd_keep
     try:
         for kind, n in SHARD_SLICES.items():
@@ -2873,7 +2895,7 @@ def phase_sharded_renders(args, params, alive, cam, group, smi):
                                 "contrib", "final_T"), out))
                 bars = _pano_bars(refs[kind], got)
                 dropped = out[6] if kind == "gaussian" else 0
-                ok = (launched == (grp.size, 0, grp.size, 0)
+                ok = (launched == (grp.size, 0, grp.size, 0, 0, 0)
                       and dropped == 0 and all(
                           m < PANO_MEAN_BAR for m, _ in bars.values()))
                 r = dict(slices=grp.size, launches=launched,
@@ -3364,7 +3386,7 @@ def phase_kitti360(smi, device, points=KITTI_POINTS, overrides=(),
     oracle_launches = tuple(n - m for n, m in zip(launch_counts(), saved_l))
     set_launch_counts(saved_l)
     # one preprocess picks the gaussians the view sees, then rasterize
-    oracle_ok = oracle_launches == (1, 1, 2, 1) and all(
+    oracle_ok = oracle_launches == (1, 1, 2, 1, 0, 0) and all(
         v <= ORACLE_RTOL for v in worst.values())
     say(14, f"(a) CUDA compositors' gradients vs the dense oracle's "
             f"autograd on {smi}: {oracle_n} gaussians of the 10750 scene "
@@ -3463,10 +3485,10 @@ def phase_kitti360(smi, device, points=KITTI_POINTS, overrides=(),
                          for i in checked[1:]))
     if (wrong or bad or len(losses) != K10750_ITERATIONS
             or n_points != args.num_pts or n_test != 4
-            or any(d != (1, 1, 1, 1) for d in per_step)
+            or any(d != ONE_STEP for d in per_step)
             or n_final < cap_min or not at_cap or not at_3m
             or not checks_ok or not same or not finite
-            or render_launches != [4, 0, 4, 0]
+            or render_launches != [4, 0, 4, 0, 0, 0]
             or sorted(results) != ["test", "train"]
             or not oracle_ok or not cli_ok
             or pngs != ["case1.png", "case2.png"]):
@@ -3849,6 +3871,105 @@ def phase_gather(device):
                 bound_ms=sum(r["bound"].ms for r in runs.values()))
 
 
+# --------------------------------------------------------------- phase 16
+CHAMFER_INVALID = 0.1     # share of each cloud's pixels with no return
+
+
+def chamfer_clouds(device, h=HW[0], w=HW[1], seed=SEED):
+    """Two seeded h x w range panoramas' points and masks, as a training
+    step's losses make them (ranges 2-40 over a scale factor of 7,
+    ``CHAMFER_INVALID`` of the pixels dropped)."""
+    import numpy as np
+    import torch
+    from gslidar_tpu_torch.ops.pano import pano_to_lidar
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(2):
+        depth = rng.uniform(2, 40, (1, h, w)).astype(np.float32)
+        depth[rng.random((1, h, w)) < CHAMFER_INVALID] = 0
+        pts, mask = pano_to_lidar(torch.as_tensor(depth, device=device),
+                                  VFOV, HFOV)
+        out += [pts / 7.0, mask]
+    return out
+
+
+# a distance summed in another order: within 4 ulps (tests/test_torch_chamfer)
+CHAMFER_SUM_ORDER = 2.0 ** -21
+
+
+def run_chamfer(device, clock_hz, h=HW[0], w=HW[1], reps=10):
+    """Phase 16's comparison and times on ``chamfer_clouds(device, h,
+    w)``; returns the two kernels' rows' numbers for the kernels line."""
+    import torch
+    from gslidar_tpu_torch.microbench.bounds import (
+        CHAMFER_PAIR_FP32, CHAMFER_PAIR_FP32_UNFUSED, chamfer_bound)
+    from gslidar_tpu_torch.microbench.timing import median_ms
+    from gslidar_tpu_torch.ops import chamfer as ch
+    x1, m1, x2, m2 = chamfer_clouds(device, h, w)
+
+    def op(fn):
+        a = x1.clone().requires_grad_(True)
+        d1, d2, s1, s2 = fn(a, x2, m1, m2)
+        grad = torch.autograd.grad(s1 + s2, a)[0]
+        return (d1.detach(), d2.detach()), (s1.detach(), s2.detach()), grad
+
+    saved = launch_counts()
+    kd, ks, kg = op(ch.chamfer_distance)
+    if launch_counts()[4:] != (saved[4] + 1, saved[5] + 1):
+        raise RuntimeError(f"the chamfer op launched {launch_counts()[4:]} "
+                           f"kernels after {saved[4:]}, not one of each")
+    pd, ps, pg = op(ch.chamfer_reference)
+    # distances: the same pick's within 4 ulps; a near-tie's pick may
+    # differ, and is then never the farther beyond them
+    off = sum(int(((k - p).abs() > CHAMFER_SUM_ORDER * p).sum())
+              for k, p in zip(kd, pd))
+    farther = sum(int((k > p * (1 + CHAMFER_SUM_ORDER)).sum())
+                  for k, p in zip(kd, pd))
+    mean_err = max(abs(float(k - p)) for k, p in zip(ks, ps))
+    mean_rel = max(abs(float(k - p)) / abs(float(p)) for k, p in zip(ks, ps))
+    # gradient rows: within 1e-5 of the largest, but where a near-tie's
+    # other pick reaches a point
+    row_err = (kg - pg).abs().amax(1)
+    row_ok = row_err <= 1e-5 * pg.abs().max()
+    rows_off = int((~row_ok).sum())
+    grad_err = float(row_err[row_ok].max())
+    n1, n2 = int(m1.sum()), int(m2.sum())
+    dist1, idx1, dist2, idx2 = ch.chamfer_nearest(x1, x2, m1, m2)
+    g1 = torch.where(m1, 1.0 / n1, 0.0).float()
+    g2 = torch.where(m2, 1.0 / n2, 0.0).float()
+    ms = {}
+    for _ in range(2):               # in turns: plain, kernels, kernels, plain
+        for name, fn in (
+                ("plain", lambda: op(ch.chamfer_reference)),
+                ("forward kernel", lambda: ch.chamfer_nearest(
+                    x1, x2, m1, m2)),
+                ("backward kernel", lambda: ch.chamfer_nearest_backward(
+                    x1, x2, idx1, idx2, g1, g2, True, False)),
+                ("op", lambda: op(ch.chamfer_distance))):
+            ms.setdefault(name, []).append(median_ms(fn, device, reps))
+    set_launch_counts(saved)
+    ms = {k: statistics.median(v) for k, v in ms.items()}
+    pair_ms = ms["forward kernel"] + ms["backward kernel"]
+    bf, bb = chamfer_bound(n1, n2, clock_hz)
+    unfused = bf.terms["fp32"] * CHAMFER_PAIR_FP32_UNFUSED / CHAMFER_PAIR_FP32
+    say(16, f"chamfer on {h}x{w} clouds, {n1} and {n2} valid points: "
+            f"distances off the plain version's by over 4 ulps {off} of "
+            f"{2 * x1.shape[0]}, farther {farther} | means vs plain "
+            f"{mean_err:.3g} ({mean_rel:.2e} of them) | gradient rows off "
+            f"{rows_off} of {x1.shape[0]}, the others within {grad_err:.3g} "
+            f"| median of {reps}: "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+            + f" | bounds: forward {bf.ms:.3f} ms ({bf.by}; {unfused:.3f} "
+            f"as built, unfused), backward {bb.ms:.4f} ms ({bb.by}); the "
+            f"bound at {(bf.ms + bb.ms) / pair_ms:.3f} of the pair's time")
+    if (mean_rel > 1e-6 or rows_off > 0.001 * x1.shape[0]
+            or off > 0.001 * 2 * x1.shape[0] or farther):
+        raise RuntimeError("the chamfer kernels disagree with the plain "
+                           "version")
+    return dict(ms=ms, bounds=(bf, bb), unfused_ms=unfused,
+                errs=(mean_err, grad_err), rows_off=rows_off, dists_off=off)
+
+
 # ---------------------------------------------------------------- phase 9
 def phase_op_chains(device, clock_hz):
     """The op-chain entry point, its launches counted; then each of the 16
@@ -3946,7 +4067,7 @@ def run_bench(phase, P, device):
     """``python -m gslidar_tpu_torch.bench --points P`` in a subprocess:
     its last line's keys and value checked, and its launches of the
     forward compositor and of the preprocess, each of which must be one
-    per render it made. Returns (the JSON, the four ``launch_counts``)."""
+    per render it made. Returns (the JSON, the six ``launch_counts``)."""
     import sys
     cmd = [sys.executable, "-m", "gslidar_tpu_torch.bench", "--points",
            str(P), "--renders", str(BENCH_RENDERS), "--device", device.type]
@@ -3974,7 +4095,7 @@ def run_bench(phase, P, device):
         raise RuntimeError(f"the bench launched the forward compositor "
                            f"{fwd} and the preprocess {pre} times, not once "
                            f"per render ({want})")
-    return res, [fwd, 0, pre, 0]
+    return res, [fwd, 0, pre, 0, 0, 0]
 
 
 def phase_bench(device, smi, points=BENCH_POINTS,
@@ -3988,7 +4109,8 @@ def phase_bench(device, smi, points=BENCH_POINTS,
     counts set to 0, ``python -m gslidar_tpu_torch.bench`` at each of
     ``points`` in a subprocess, and ``bench_train_step``, ``profile_render
     --tiles BENCH_TILES --trace``, ``profile_train_step --trace``,
-    ``tile_stats`` and ``measure_tight_rects`` in this process. Returns
+    ``tile_stats`` and ``measure_tight_rects`` in this process; each
+    ``bench_train_step`` step must launch the chamfer pair once. Returns
     (the forward's and the backward's largest errors, the bench path's
     ``launch_counts``, the renders per second at each of ``points``, the
     preprocess checks by size: their errors and stage times)."""
@@ -4003,6 +4125,7 @@ def phase_bench(device, smi, points=BENCH_POINTS,
     from gslidar_tpu_torch.scripts import (measure_tight_rects,
                                            profile_render,
                                            profile_train_step, tile_stats)
+    from gslidar_tpu_torch.utils.trace import counters
     t0 = time.perf_counter()
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -4088,12 +4211,15 @@ def phase_bench(device, smi, points=BENCH_POINTS,
     trace = ["--trace"] if device.type == "cuda" else []
     dev = ["--device", device.type]
     set_launch_counts()
-    rates, sub_launches = {}, [0, 0, 0, 0]
+    rates, sub_launches = {}, [0] * len(LAUNCH_COUNTERS)
     for n in points:
         res, k = run_bench(15, n, device)
         rates[n] = res["value"]
         sub_launches = [a + b for a, b in zip(sub_launches, k)]
+    steps0, cham0 = counters().get("train_steps", 0), launch_counts()[4:]
     run_entry(15, bts.main, ["--points", str(step_points), *dev])
+    bts_steps = counters().get("train_steps", 0) - steps0
+    bts_cham = tuple(n - m for n, m in zip(launch_counts()[4:], cham0))
     run_entry(15, profile_render.main, ["--points", str(P), "--tiles",
                                         *BENCH_TILES, *trace, *dev])
     run_entry(15, profile_train_step.main, ["--points", str(step_points),
@@ -4104,9 +4230,13 @@ def phase_bench(device, smi, points=BENCH_POINTS,
     say(15, f"bench path: renders/s {rates} | launches "
             f"{launches_text(launches)} ({launches_text(sub_launches)} in "
             f"the bench's subprocesses) | {time.perf_counter() - t0:.1f} s")
-    if device.type == "cuda" and min(launches) == 0:
-        raise RuntimeError(f"the bench path launched {launches} forward and "
-                           "backward kernels")
+    say(15, f"bench_train_step: {bts_steps} steps, chamfer forward and "
+            f"backward launches {bts_cham}")
+    if device.type == "cuda" and (min(launches) == 0
+                                  or bts_cham != (bts_steps, bts_steps)):
+        raise RuntimeError(f"the bench path launched {launches} kernels, "
+                           f"the chamfer's {bts_cham} in {bts_steps} "
+                           f"bench_train_step steps")
     return max(err_f, err_sf), err_b, launches, rates, prep_checks
 
 
@@ -4134,7 +4264,7 @@ def main():
     bound_pf, bound_pb = say_prep_bounds(prep5, works7["preprocess"], med7,
                                          clock_hz)
     phase_train_densify(device, params, smi)
-    err11, _ = phase_eval_refine(args, params, alive, prior, smi)
+    err11, eval_launches = phase_eval_refine(args, params, alive, prior, smi)
     group = phase_nccl(device)
     err13f, err13b, dp_launches, _, _ = phase_dp_train(device, params, group,
                                                        smi)
@@ -4150,6 +4280,7 @@ def main():
     err15, err15b, bench_launches, _, prep15 = phase_bench(device, smi)
     gather = phase_gather(device)
     chains = phase_op_chains(device, clock_hz)
+    cham = run_chamfer(device, clock_hz)
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "composite_fwd", "route": "cuda",
@@ -4231,7 +4362,28 @@ def main():
         "name": "op_chain", "route": "cuda",
         "source": "gslidar_tpu_torch/csrc/op_chain.cu",
         "replaces": "scripts/microbench_vpu_ops.py:43",
-        "bound_by": "operations", **chains}]}))
+        "bound_by": "operations", **chains}, *({
+        "name": f"chamfer_{part}", "route": "cuda",
+        "source": "gslidar_tpu_torch/csrc/chamfer.cu",
+        "replaces": "the XLA chamfer of gslidar_tpu/ops/chamfer.py",
+        "launches": launches[k],
+        "launches_by_path": {"training (phase 6)": launches[k],
+                             "eval (phase 11)": eval_launches[k],
+                             "data-parallel training (phase 13)":
+                                 dp_launches[k],
+                             "kitti360_nvs_10750 training (phase 14)":
+                                 kitti_launches[k],
+                             "bench (phase 15)": bench_launches[k]},
+        "max_abs_err": cham["errs"][i],
+        "ms": cham["ms"][f"{name} kernel"],
+        "op_ms": cham["ms"]["op"], "plain_ms": cham["ms"]["plain"],
+        "bound_ms": cham["bounds"][i].ms,
+        "bound_by": cham["bounds"][i].bound_by, "library_ms": None,
+        **extra}
+        for i, (k, part, name, extra) in enumerate((
+            (4, "fwd", "forward", {"bound_ms_unfused": cham["unfused_ms"],
+                                   "dists_off": cham["dists_off"]}),
+            (5, "bwd", "backward", {"rows_off": cham["rows_off"]}))))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -107,6 +107,19 @@ SIGNATURES = {
                                          # clamped
         _P,                              # stream
     ],
+    "gslidar_chamfer_fwd": [
+        _I, _P, _I, _I, _I, _P,          # device, x1, n1, row1, col1, mask1
+        _P, _I, _I, _I, _P,              # x2, n2, row2, col2, mask2
+        _P, _P,                          # keys, merge counts
+        _P, _P, _P, _P,                  # dist1, idx1, dist2, idx2
+        _P,                              # stream
+    ],
+    "gslidar_chamfer_bwd": [
+        _I, _P, _I, _I, _I,              # device, x1, n1, row1, col1
+        _P, _I, _I, _I,                  # x2, n2, row2, col2
+        _P, _P, _P, _P,                  # idx1, idx2, g1, g2
+        _P, _P, _P,                      # dx1, dx2, stream
+    ],
     "gslidar_preprocess_bwd": [
         _I, _P,                          # device, params (host PrepParams)
         _P, _P, _P, _P, _P, _P,          # means, scales, quats, shs,
@@ -219,6 +232,20 @@ def load_library() -> KernelLibrary:
             path, seconds = build()
             _loaded = KernelLibrary(path, seconds)
         return _loaded
+
+
+def launch(name: str, dev, *args) -> None:
+    """Call launcher ``name`` of the library for CUDA device ``dev`` with
+    ``args`` and the device's current stream; raise on a CUDA error."""
+    import torch
+    lib = load_library()
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    with torch.cuda.device(index):
+        err = getattr(lib, name)(index, *args,
+                                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 RESOURCE_FIELDS = ("registers", "static_smem", "local_bytes",

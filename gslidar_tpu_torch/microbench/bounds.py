@@ -177,6 +177,32 @@ def preprocess_bound(P: int, n_sh: int, K: int, C: int, scale_cols: int,
                  mufu=issue_ms(P * mufu, "mufu", clock_hz))
 
 
+# ------------------------------------------------------------ chamfer
+# the least float32 issue the chamfer needs (csrc/chamfer.cu): a
+# (query, reference) pair of the forward's scan takes 3 subtractions, a
+# multiplication and 2 FMAs (the compare and the select uncounted; the
+# kernel, built with --fmad=false, issues 8: CHAMFER_PAIR_FP32_UNFUSED); a
+# query of the backward, 3 subtractions, 2 g and the 3 products of 2 g with
+# the differences
+CHAMFER_PAIR_FP32, CHAMFER_PAIR_FP32_UNFUSED, CHAMFER_BWD_FP32 = 6, 8, 7
+# per point: the forward reads its 3 floats and mask byte and writes its
+# distance and index; the backward reads the point, index and gradient
+# and writes its 3 gradients
+CHAMFER_FWD_BYTES, CHAMFER_BWD_BYTES = 12 + 1 + 4 + 4, 12 + 4 + 4 + 12
+
+
+def chamfer_bound(n: int, m: int, clock_hz: float) -> tuple[Bound, Bound]:
+    """The least times of the chamfer's forward and of its backward on two
+    clouds of n and m valid points: the forward's 2 n m pairs and the
+    backward's n + m queries as fp32 issue, each against its bytes."""
+    return (bound(bytes=bytes_ms((n + m) * CHAMFER_FWD_BYTES),
+                  fp32=issue_ms(CHAMFER_PAIR_FP32 * 2 * n * m, "fp32",
+                                clock_hz)),
+            bound(bytes=bytes_ms((n + m) * CHAMFER_BWD_BYTES),
+                  fp32=issue_ms(CHAMFER_BWD_FP32 * (n + m), "fp32",
+                                clock_hz)))
+
+
 # ---------------------------------------------------------- op chains
 # per element and op, the instructions each pipe must issue (float32;
 # bfloat16 packs two elements per instruction where sm_90a has the packed

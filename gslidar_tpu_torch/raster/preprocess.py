@@ -24,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from gslidar_tpu_torch.kernels import launch
 from gslidar_tpu_torch.ops.sh import active_coeffs, eval_sh, eval_sh_backward
 from gslidar_tpu_torch.raster.settings import (FILTER_INV_SQUARE,
                                                FRUSTUM_MARGIN, NEAR_N,
@@ -531,18 +532,6 @@ def _kernel_inputs(means3D, scales, quats, shs, viewmat, campos):
             _float_rows("campos", campos[None], 1, 3))
 
 
-def _launch(name, dev, *args):
-    from gslidar_tpu_torch.kernels import load_library
-    lib = load_library()
-    index = dev.index if dev.index is not None else \
-        torch.cuda.current_device()
-    with torch.cuda.device(index):
-        err = getattr(lib, name)(index, *args,
-                                 torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-
-
 def _ptr(x):
     return None if x is None else x.data_ptr()
 
@@ -580,13 +569,13 @@ def _preprocess_kernel(means3D, scales, quats, opacity, shs, colors_precomp,
     clamped = None if shs is None else torch.empty(P, C, dtype=torch.bool,
                                                    device=dev)
     if P:
-        _launch("gslidar_preprocess_fwd", dev, ctypes.byref(params),
-                means3D.data_ptr(), scales.data_ptr(), quats.data_ptr(),
-                opacity.data_ptr(), mask.data_ptr(), _ptr(shs),
-                viewmat.data_ptr(), campos.data_ptr(), sa.data_ptr(),
-                ca.data_ptr(), *(x.data_ptr() for x in out[:4]),
-                None if shs is None else out.color.data_ptr(),
-                *(x.data_ptr() for x in out[5:]), _ptr(clamped))
+        launch("gslidar_preprocess_fwd", dev, ctypes.byref(params),
+               means3D.data_ptr(), scales.data_ptr(), quats.data_ptr(),
+               opacity.data_ptr(), mask.data_ptr(), _ptr(shs),
+               viewmat.data_ptr(), campos.data_ptr(), sa.data_ptr(),
+               ca.data_ptr(), *(x.data_ptr() for x in out[:4]),
+               None if shs is None else out.color.data_ptr(),
+               *(x.data_ptr() for x in out[5:]), _ptr(clamped))
         count("launches.preprocess_fwd")
     return out, clamped
 
@@ -611,13 +600,13 @@ def _preprocess_backward_kernel(means3D, scales, quats, shs, viewmat, campos,
     dquats = torch.empty(P, 4, **f32)
     dshs = None if shs is None else torch.empty_like(shs)
     if P:
-        _launch("gslidar_preprocess_bwd", dev, ctypes.byref(params),
-                means3D.data_ptr(), scales.data_ptr(), quats.data_ptr(),
-                _ptr(shs), viewmat.data_ptr(), campos.data_ptr(),
-                _ptr(clamped), dT.data_ptr(),
-                None if shs is None else dcolor.data_ptr(),
-                dmeans.data_ptr(), dscales.data_ptr(), dquats.data_ptr(),
-                _ptr(dshs))
+        launch("gslidar_preprocess_bwd", dev, ctypes.byref(params),
+               means3D.data_ptr(), scales.data_ptr(), quats.data_ptr(),
+               _ptr(shs), viewmat.data_ptr(), campos.data_ptr(),
+               _ptr(clamped), dT.data_ptr(),
+               None if shs is None else dcolor.data_ptr(),
+               dmeans.data_ptr(), dscales.data_ptr(), dquats.data_ptr(),
+               _ptr(dshs))
         count("launches.preprocess_bwd")
     return dmeans, dscales, dquats, dshs
 

@@ -15,7 +15,8 @@ group has a gradient.
 
 The card test (``-m cuda``, on an H100) counts the syncs that
 ``torch.cuda.set_sync_debug_mode`` sees in a 1M-gaussian step against the
-registry's and the device time launched inside the step's spans.
+registry's, binning's one and no chamfer site, and the device time
+launched inside the step's spans.
 """
 
 import contextlib
@@ -32,11 +33,13 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W = 16, 64
 
-# a step's device-to-host reads, by site: binning's instance total, the
-# chamfer's two boolean selections, the backward of the one that needs a
-# gradient (the predicted points) and of both masked_scatters
+# a CPU step's device-to-host reads, by site: binning's instance total,
+# the plain chamfer's two boolean selections, the backward of the one that
+# needs a gradient (the predicted points) and of both masked_scatters
 STEP_SYNCS = {"binning": 1, "chamfer_mask": 2, "chamfer_index_bwd": 1,
               "chamfer_scatter_bwd": 2}
+# a card step's: binning's alone (the chamfer's kernels read nothing back)
+CARD_STEP_SYNCS = {"binning": 1}
 GROUPS = ("xyz", "f_dc", "f_rest", "opacity", "scaling", "rotation", "t",
           "scaling_t", "velocity", "intensity")
 # parent -> the spans a step reaches inside it
@@ -265,7 +268,8 @@ def test_profile_iter_trace_holds_the_spans(tmp_path):
 def test_card_step_counts_every_sync():
     """On the card, one step of 1M gaussians at 66x515: the syncs that
     ``torch.cuda.set_sync_debug_mode("warn")`` reports equal the step's
-    ``host_syncs`` count; in one profiled step >= 99 % of the device time
+    ``host_syncs`` count, binning's one (``CARD_STEP_SYNCS``: the chamfer
+    kernels make none); in one profiled step >= 99 % of the device time
     was launched inside the step's spans, and the backward's kernels
     inside spans on autograd's thread."""
     if not torch.cuda.is_available():
@@ -290,7 +294,11 @@ def test_card_step_counts_every_sync():
     syncs = [w for w in caught if "synchronizing" in str(w.message)]
     after = counters()
     assert len(syncs) == after["host_syncs"] - before.get("host_syncs", 0)
-    assert len(syncs) == sum(STEP_SYNCS.values())
+    sites = {k[len("host_syncs."):]: after[k] - before.get(k, 0)
+             for k in after if k.startswith("host_syncs.")
+             and after[k] != before.get(k, 0)}
+    assert sites == CARD_STEP_SYNCS
+    assert len(syncs) == sum(CARD_STEP_SYNCS.values())
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
