@@ -259,9 +259,17 @@ failing phase raises:
    near-tie's pick may differ) and never farther, its means within 1e-6,
    and its gradient rows within 1e-5 of the largest on all but 0.1 % of
    the points; one launch of each kernel per op call (``run_chamfer``);
-17. the result: the card's nvidia-smi line, one JSON line of the eight
-   kernels (the compositors, the preprocess pair and the chamfer pair
-   with their launches on each path), and the last line
+17. the Adam kernel (``models/optim.py::adam_step``, ``csrc/adam.cu``) at
+   both train cells' 1,000,000 and 10,000,000 gaussians, inputs laid out
+   as the step makes them: its new parameters and moments equal to the
+   plain version's bit for bit on every element of all ten groups, one
+   launch a call; the kernel, the plain version and
+   ``torch._fused_adam_`` (a library yardstick the port never calls) each
+   timed as 10 calls back to back between CUDA events, in turns, median
+   of 3, beside ``adam_bound`` (``run_adam``);
+18. the result: the card's nvidia-smi line, one JSON line of the nine
+   kernels (the compositors, the preprocess pair, the chamfer pair and
+   Adam with their launches on each path), and the last line
    ``{"ok": true, "device": {...}}``.
 
 Wherever a phase counts the compositors' launches it counts the
@@ -270,7 +278,9 @@ set numbers: one preprocess forward per render, camera, slice, eval pair
 and viewer render, one backward per step and DP camera; one chamfer
 forward and backward per step and DP camera (and per ``bench_train_step``
 step in phase 15), a forward per eval pair's PointsMeter, none per
-render.
+render. The training phases (6, 10, 12, 13, 14) and ``bench_train_step``
+hold each step to one Adam launch (``launches.adam``; ``StepLaunches``),
+but a densify iteration's, which applies no update and launches none.
 
 Tolerances, forward kernel vs plain: color, features, normal, alpha and
 final T at atol 1e-4; mean depth and sum w*d^2 at rtol 1e-4 + atol 1e-3;
@@ -1487,29 +1497,60 @@ def train_args(model_path, iterations, overrides=()):
                       f"iterations={iterations}", *overrides])
 
 
+def adam_launches():
+    """The Adam kernel's launches counted so far (``launches.adam``)."""
+    from gslidar_tpu_torch.utils.trace import counters
+    return counters().get("launches.adam", 0)
+
+
+# the Adam kernel's launches of each training path's steps, for the
+# kernels line (each path records ``StepLaunches.held``'s count)
+ADAM_BY_PATH = {}
+
+
 class StepLaunches:
     """The kernels' launches of each training step (``launch_counts``):
-    ``step()`` from the step's ``on_step`` hook, ``skip()`` from every
+    ``step()`` from the step's ``on_step`` hook, ``skip(name)`` from every
     event hook, whose launches (the loop's depth visualizations) go to
     ``other`` and not to the next step. ``per_step`` lists (compositor
     forward, backward, preprocess forward, backward, chamfer forward,
-    backward) per step."""
+    backward) per step, ``adam`` the Adam kernel's launches per step;
+    ``skip("densify")`` marks the step before it as one that applies no
+    update (the loop's densify iterations)."""
 
     def __init__(self):
         self.last = launch_counts()
-        self.per_step = []
+        self.last_adam = adam_launches()
+        self.per_step, self.adam, self.no_update = [], [], set()
         self.other = (0,) * len(self.last)
+        self.other_adam = 0
 
     def step(self):
         now = launch_counts()
         self.per_step.append(tuple(n - l for n, l in zip(now, self.last)))
         self.last = now
+        now = adam_launches()
+        self.adam.append(now - self.last_adam)
+        self.last_adam = now
 
-    def skip(self):
+    def skip(self, name=None):
         now = launch_counts()
         self.other = tuple(o + n - l for o, n, l in
                            zip(self.other, now, self.last))
         self.last = now
+        now = adam_launches()
+        self.other_adam += now - self.last_adam
+        self.last_adam = now
+        if name == "densify":
+            self.no_update.add(len(self.adam) - 1)
+
+    def held(self):
+        """(whether each step launched the Adam kernel once, but a step
+        that applied no update, which launched none, and no event
+        launched it; the steps' Adam launches)."""
+        return self.other_adam == 0 and self.adam == [
+            int(i not in self.no_update) for i in range(len(self.adam))
+        ], sum(self.adam)
 
 
 def phase_train(device, init_params):
@@ -1544,7 +1585,8 @@ def phase_train(device, init_params):
     t0 = time.perf_counter()
     state, scene, losses = training(args, device, init_params=init_params,
                                     on_step=on_step,
-                                    on_event=lambda *a: steps.skip())
+                                    on_event=lambda it, name, *a:
+                                    steps.skip(name))
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = launch_counts()
@@ -1562,7 +1604,8 @@ def phase_train(device, init_params):
            f"step {per_step} (and {steps.other[0]} compositor and "
            f"{steps.other[2]} preprocess forwards of the loop's depth "
            f"visualizations and final eval, {steps.other[4]} chamfer "
-           f"forwards of its point meters) | instances per "
+           f"forwards of its point meters), Adam per step {steps.adam} "
+           f"| instances per "
            f"step {counts} | loss {[round(x, 5) for x in losses]}"
            f" | gradients finite {finite} | moved "
            f"{sorted(k for k in moved if moved[k])}, prior {prior_moved}; "
@@ -1570,7 +1613,9 @@ def phase_train(device, init_params):
     # SH degree 0 until sh_increase_interval: f_rest has no gradient yet
     core = ("xyz", "f_dc", "opacity", "scaling", "rotation")
     shutil.rmtree(args.model_path, ignore_errors=True)   # its checkpoint
+    adam_ok, ADAM_BY_PATH["training (phase 6)"] = steps.held()
     if (len(losses) != TRAIN_STEPS or any(d != ONE_STEP for d in per_step)
+            or not adam_ok
             or not all(math.isfinite(x) for x in losses) or not finite
             or moved != expect or not prior_moved
             or not all(expect[k] for k in core)):
@@ -1708,7 +1753,7 @@ def phase_train_densify(device, init_params, smi):
         mark()
 
     def on_event(iteration, name, state, info):
-        steps.skip()
+        steps.skip(name)
         rec["events"][iteration].append(name)
         if name == "densify":
             c = dict(info, cuda_ms=cuda_ms[-1])
@@ -1761,6 +1806,8 @@ def phase_train_densify(device, init_params, smi):
     finally:
         co.composite_backward, T.make_densify_fn = bwd_orig, make_orig
     per_step = steps.per_step
+    adam_ok, ADAM_BY_PATH["training with densification (phase 10)"] = (
+        steps.held())
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
 
     # the events against the schedule, on the counts observed
@@ -1779,7 +1826,8 @@ def phase_train_densify(device, init_params, smi):
             + ", ".join(DENSIFY_RUN) + f") | events {fired} | launches "
             f"{launches_text(launches)}, per step {per_step} (and "
             f"{steps.other[0]} compositor forwards of the depth "
-            f"visualizations) | gaussians per step "
+            f"visualizations), Adam per step {steps.adam} | gaussians per "
+            f"step "
             f"{[rec['n'][i] for i in sorted(rec['n'])]} | loss "
             f"{[round(x, 5) for x in losses]} | {wall_s:.2f} s")
     for it, c in rec["densify"].items():
@@ -1816,7 +1864,7 @@ def phase_train_densify(device, init_params, smi):
     steps = StepLaunches()
 
     def on_resume_event(iteration, name, state, info):
-        steps.skip()
+        steps.skip(name)
         if name == "eval":
             torch.cuda.synchronize()
             rec["eval_s"][f"resume {iteration}"] = (
@@ -1835,18 +1883,22 @@ def phase_train_densify(device, init_params, smi):
         for it, c in sorted(rec["ckpt"].items()))
         + f" | chkpnt12 loaded in {load_s:.2f} s, every leaf bit for bit as "
           f"saved: {same} | resume to {RESUME_ITERATIONS}: "
-          f"{len(r_losses)} steps, launches per step {steps.per_step}, loss "
+          f"{len(r_losses)} steps, launches per step {steps.per_step}, "
+          f"Adam per step {steps.adam}, loss "
           f"{[round(x, 5) for x in r_losses]}")
     say(10, "the final evals (complete_eval at test_iterations' appended "
             "last iteration; host clock, synchronised): " + ", ".join(
                 f"{it}: {sec:.2f} s ({'+'.join(splits)})"
                 for it, (sec, splits) in rec["eval_s"].items()))
+    resume_adam_ok, ADAM_BY_PATH["resumed training (phase 10)"] = (
+        steps.held())
     files = {it: os.path.exists(os.path.join(run, "ckpt",
                                              f"chkpnt{it}.npz"))
              for it in (12, DENSIFY_ITERATIONS)}
     shutil.rmtree(run, ignore_errors=True)
     if (wrong or bad or len(losses) != DENSIFY_ITERATIONS
             or any(d != ONE_STEP for d in per_step + steps.per_step)
+            or not adam_ok or not resume_adam_ok
             or 8 not in rec["densify"] or "reset" not in rec["events"][6]
             or "upscale" not in rec["events"][10]
             or rec.get("kernels_checked") != 9
@@ -2308,7 +2360,7 @@ def phase_opv2v(smi, device, tree_kw=None, overrides=()):
 
     def on_event(iteration, name, state, info):
         seconds = stage(name)
-        steps.skip()
+        steps.skip(name)
         rec["events"][iteration].append(name)
         if name == "densify":
             rec["densify"][iteration] = dict(info, cuda_ms=cuda_ms[-1])
@@ -2367,7 +2419,8 @@ def phase_opv2v(smi, device, tree_kw=None, overrides=()):
             + ", ".join(OPV2V_RUN) + f") | events {fired} | launches "
             f"{launches_text(launches)}, per step {per_step} (and "
             f"{steps.other[0]} compositor forwards of the depth "
-            f"visualizations, the viewer and the final eval) | time shift "
+            f"visualizations, the viewer and the final eval), Adam per step "
+            f"{steps.adam} | time shift "
             f"at {shifted} | gaussians per step "
             f"{[rec['n'][i] for i in sorted(rec['n'])]} | instances per "
             f"step {[rec['pairs'][i] for i in sorted(rec['pairs'])]} | loss "
@@ -2437,9 +2490,11 @@ def phase_opv2v(smi, device, tree_kw=None, overrides=()):
     shutil.rmtree(root, ignore_errors=True)
     full, prev, again = (client.get(k, {}) for k in (
         "full", "preview", "full again"))
+    adam_ok, ADAM_BY_PATH["OPV2V training (phase 12)"] = steps.held()
     if (wrong or bad or len(losses) != OPV2V_ITERATIONS
             or n_points != args.num_pts or (n_train, n_test) != (48, 3)
             or any(d != ONE_STEP for d in per_step)
+            or not adam_ok
             or dens != [8, 12] or not shifted
             or not all(rec["moved"].get(k) for k in (
                 "velocity", "t", "scaling_t"))
@@ -2572,7 +2627,7 @@ def phase_dp_train(device, init_params, group, smi):
         mark()
 
     def on_event(iteration, name, state, info):
-        steps.skip()
+        steps.skip(name)
         rec["events"][iteration].append(name)
         mark()
 
@@ -2594,15 +2649,19 @@ def phase_dp_train(device, init_params, group, smi):
             f"at {HW[0]}x{HW[1]} (" + ", ".join(DP_RUN) + f") | events "
             f"{fired} | launches {launches_text(launches)}, per step "
             f"{steps.per_step} (and {steps.other[0]} compositor forwards of "
-            f"the depth visualizations and the eval) | all_reduce per step {reduces} | loss "
+            f"the depth visualizations and the eval), Adam per step "
+            f"{steps.adam} | all_reduce per step {reduces} | loss "
             f"{[round(x, 5) for x in losses]} | moved by step 1 "
             f"{sorted(k for k in moved if moved[k][0])} | median step "
             f"{_median_ms(rec['step_ms'], range(2, DP_ITERATIONS + 1)):.3f} "
             f"ms (host clock, synchronised) | {wall_s:.2f} s")
     shutil.rmtree(run, ignore_errors=True)
     core = ("xyz", "f_dc", "opacity", "scaling", "rotation")
+    adam_ok, ADAM_BY_PATH["data-parallel training (phase 13)"] = (
+        steps.held())
     if (bad or len(losses) != DP_ITERATIONS
             or any(d != (DP_CAMERAS,) * len(ONE_STEP) for d in steps.per_step)
+            or not adam_ok
             or any(r != 2 for r in reduces)
             or "densify" not in rec["events"].get(8, [])
             or "eval" not in rec["events"].get(DP_ITERATIONS, [])
@@ -3241,7 +3300,7 @@ def phase_kitti360(smi, device, points=KITTI_POINTS, overrides=(),
 
     def on_event(iteration, name, state, info):
         seconds = stage(name)
-        steps.skip()
+        steps.skip(name)
         rec["events"][iteration].append(name)
         if name == "densify":
             rec["densify"][iteration] = dict(info, cuda_ms=cuda_ms[-1])
@@ -3300,7 +3359,8 @@ def phase_kitti360(smi, device, points=KITTI_POINTS, overrides=(),
             + ", ".join(K10750_RUN) + f") | events {fired} | launches "
             f"{launches_text(launches)}, per step {per_step} (and "
             f"{steps.other[0]} compositor forwards of the depth "
-            f"visualizations and the final eval) | gaussians per step "
+            f"visualizations and the final eval), Adam per step "
+            f"{steps.adam} | gaussians per step "
             f"{[rec['n'][i] for i in sorted(rec['n'])]} | instances per "
             f"step {[rec['pairs'][i] for i in sorted(rec['pairs'])]} | loss "
             f"{[round(x, 5) for x in losses]} | {wall_s:.1f} s with set-up")
@@ -3483,9 +3543,12 @@ def phase_kitti360(smi, device, points=KITTI_POINTS, overrides=(),
                  and rec["checked"][checked[0]][0] == n_points
                  and any(rec["checked"][i][0] >= cap_min
                          for i in checked[1:]))
+    adam_ok, ADAM_BY_PATH["kitti360_nvs_10750 training (phase 14)"] = (
+        steps.held())
     if (wrong or bad or len(losses) != K10750_ITERATIONS
             or n_points != args.num_pts or n_test != 4
             or any(d != ONE_STEP for d in per_step)
+            or not adam_ok
             or n_final < cap_min or not at_cap or not at_3m
             or not checks_ok or not same or not finite
             or render_launches != [4, 0, 4, 0, 0, 0]
@@ -3970,6 +4033,122 @@ def run_chamfer(device, clock_hz, h=HW[0], w=HW[1], reps=10):
                 errs=(mean_err, grad_err), rows_off=rows_off, dists_off=off)
 
 
+# --------------------------------------------------------------- phase 17
+# both train cells' gaussians: kitti360_nvs_1908's and kitti360_nvs_10750's
+# cap (benchmark/configs)
+ADAM_POINTS = (1_000_000, 10_000_000)
+# an element's moments after 20,000 steps of gradients of this scale
+ADAM_COUNT = 20000
+
+
+def adam_inputs(P, device, seed=SEED):
+    """Seeded Adam inputs of P gaussians laid out as the step makes them:
+    params, their gradients (f_dc's and f_rest's the column ranges of one
+    [P, 16, 4] gradient), moments after ADAM_COUNT steps, and each group's
+    rate at kitti360_nvs_10750's iteration 20,001."""
+    import torch
+    from gslidar_tpu_torch.models.optim import AdamState, group_lrs
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shapes = {"xyz": (3,), "f_dc": (1, 4), "f_rest": (15, 4),
+              "opacity": (1,), "scaling": (3,), "rotation": (4,), "t": (1,),
+              "scaling_t": (1,), "velocity": (3,), "intensity": (1,)}
+
+    def draw(scale, shape):
+        return scale * torch.randn(shape, generator=gen, device=device)
+
+    def groups(scale):
+        return {k: draw(scale, (P,) + s) for k, s in shapes.items()}
+    grads = groups(1e-3)
+    sh = draw(1e-3, (P, 16, 4))
+    grads["f_dc"], grads["f_rest"] = sh[:, :1], sh[:, 1:]
+    nu = {k: v.abs_() for k, v in groups(1e-7).items()}
+    from gslidar_tpu_torch.train import load_args
+    args = load_args(os.path.join(REPO, "configs", "kitti360_nvs_10750.yaml"),
+                     os.path.join(REPO, "configs", "base.yaml"))
+    return (groups(1.0), grads, AdamState(mu=groups(1e-4), nu=nu,
+                                          count=ADAM_COUNT),
+            group_lrs(args, ADAM_COUNT + 1))
+
+
+def run_adam(device, clock_hz, reps=10):
+    """Phase 17: the Adam kernel (``models/optim.py::adam_step``,
+    ``csrc/adam.cu``) at both train cells' gaussians: its new parameters
+    and moments against the plain version's bit for bit on every element
+    of all ten groups, one launch a call; then the kernel, the plain
+    version and ``torch._fused_adam_`` (the library's yardstick, which the
+    port never calls: one rate for all groups, over contiguous copies)
+    timed in turns, each as ``reps`` calls back to back between two CUDA
+    events (the host enqueues ahead of the card, so a call's host time is
+    left out where it is the shorter), beside ``adam_bound``. Returns the
+    numbers per P for the kernels line."""
+    import torch
+    from gslidar_tpu_torch.microbench.bounds import adam_bound
+    from gslidar_tpu_torch.models import optim
+
+    def loop_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(reps):
+            fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1]) / reps
+    out = {}
+    for P in ADAM_POINTS:
+        params, grads, state, lrs = adam_inputs(P, device)
+        n0 = adam_launches()
+        got = optim.adam_step(params, grads, state, lrs)
+        launched = adam_launches() - n0
+        want = optim.adam_step_reference(params, grads, state, lrs)
+        off = {}
+        for k in params:
+            for a, b in ((got[0][k], want[0][k]),
+                         (got[1].mu[k], want[1].mu[k]),
+                         (got[1].nu[k], want[1].nu[k])):
+                n = int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                off[k] = off.get(k, 0) + n
+        del got, want
+        lib = [[t.clone() for t in d.values()] for d in (
+            params, grads, state.mu, state.nu)]
+        steps = [torch.tensor(float(ADAM_COUNT), device=device)
+                 for _ in params]
+
+        def library():
+            torch._fused_adam_(*lib, [], steps, lr=1e-3, beta1=optim.B1,
+                               beta2=optim.B2, weight_decay=0.0,
+                               eps=optim.EPS, amsgrad=False, maximize=False)
+        ms = {}
+        for _ in range(3):           # in turns: plain, kernel, library
+            for name, fn in (
+                    ("plain", lambda: optim.adam_step_reference(
+                        params, grads, state, lrs)),
+                    ("kernel", lambda: optim.adam_step(params, grads, state,
+                                                       lrs)),
+                    ("library", library)):
+                ms.setdefault(name, []).append(loop_ms(fn))
+        ms = {k: statistics.median(v) for k, v in ms.items()}
+        elements = sum(v.numel() for v in params.values())
+        b = adam_bound(elements, clock_hz)
+        out[P] = dict(ms=ms, bound=b, off=sum(off.values()),
+                      launches=launched, elements=elements)
+        say(17, f"Adam over all ten groups at {P} gaussians ({elements} "
+                f"elements): elements off the plain version's bits "
+                f"{off} | launches a call {launched} | a call of {reps} "
+                f"back to back, median of 3: "
+                + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+                + f" | bound {b.ms:.3f} ms ({b.by}): the kernel at "
+                f"{b.ms / ms['kernel']:.3f} of it, "
+                f"{elements * 28 / ms['kernel'] / 1e9:.3f} TB/s")
+        del params, grads, state, lib
+        torch.cuda.empty_cache()
+    if any(r["off"] or r["launches"] != 1 for r in out.values()):
+        raise RuntimeError("the Adam kernel disagrees with the plain "
+                           "version or launched other than once")
+    return out
+
+
 # ---------------------------------------------------------------- phase 9
 def phase_op_chains(device, clock_hz):
     """The op-chain entry point, its launches counted; then each of the 16
@@ -4217,9 +4396,12 @@ def phase_bench(device, smi, points=BENCH_POINTS,
         rates[n] = res["value"]
         sub_launches = [a + b for a, b in zip(sub_launches, k)]
     steps0, cham0 = counters().get("train_steps", 0), launch_counts()[4:]
+    adam0 = adam_launches()
     run_entry(15, bts.main, ["--points", str(step_points), *dev])
     bts_steps = counters().get("train_steps", 0) - steps0
     bts_cham = tuple(n - m for n, m in zip(launch_counts()[4:], cham0))
+    bts_adam = adam_launches() - adam0
+    ADAM_BY_PATH["bench_train_step (phase 15)"] = bts_adam
     run_entry(15, profile_render.main, ["--points", str(P), "--tiles",
                                         *BENCH_TILES, *trace, *dev])
     run_entry(15, profile_train_step.main, ["--points", str(step_points),
@@ -4231,12 +4413,14 @@ def phase_bench(device, smi, points=BENCH_POINTS,
             f"{launches_text(launches)} ({launches_text(sub_launches)} in "
             f"the bench's subprocesses) | {time.perf_counter() - t0:.1f} s")
     say(15, f"bench_train_step: {bts_steps} steps, chamfer forward and "
-            f"backward launches {bts_cham}")
+            f"backward launches {bts_cham}, Adam launches {bts_adam}")
     if device.type == "cuda" and (min(launches) == 0
-                                  or bts_cham != (bts_steps, bts_steps)):
+                                  or bts_cham != (bts_steps, bts_steps)
+                                  or bts_adam != bts_steps):
         raise RuntimeError(f"the bench path launched {launches} kernels, "
-                           f"the chamfer's {bts_cham} in {bts_steps} "
-                           f"bench_train_step steps")
+                           f"the chamfer's {bts_cham} and Adam's "
+                           f"{bts_adam} in {bts_steps} bench_train_step "
+                           f"steps")
     return max(err_f, err_sf), err_b, launches, rates, prep_checks
 
 
@@ -4281,6 +4465,7 @@ def main():
     gather = phase_gather(device)
     chains = phase_op_chains(device, clock_hz)
     cham = run_chamfer(device, clock_hz)
+    adam = run_adam(device, clock_hz)
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "composite_fwd", "route": "cuda",
@@ -4383,7 +4568,22 @@ def main():
         for i, (k, part, name, extra) in enumerate((
             (4, "fwd", "forward", {"bound_ms_unfused": cham["unfused_ms"],
                                    "dists_off": cham["dists_off"]}),
-            (5, "bwd", "backward", {"rows_off": cham["rows_off"]}))))]}))
+            (5, "bwd", "backward", {"rows_off": cham["rows_off"]})))), {
+        "name": "adam", "route": "cuda",
+        "source": "gslidar_tpu_torch/csrc/adam.cu",
+        "replaces": "the XLA Adam of gslidar_tpu/models/optim.py",
+        "launches": sum(ADAM_BY_PATH.values()),
+        "launches_by_path": ADAM_BY_PATH,
+        "elements_off": sum(r["off"] for r in adam.values()),
+        "ms": adam[ADAM_POINTS[0]]["ms"]["kernel"],
+        "plain_ms": adam[ADAM_POINTS[0]]["ms"]["plain"],
+        "library_ms": adam[ADAM_POINTS[0]]["ms"]["library"],
+        "bound_ms": adam[ADAM_POINTS[0]]["bound"].ms,
+        "ms_10M": adam[ADAM_POINTS[1]]["ms"]["kernel"],
+        "plain_ms_10M": adam[ADAM_POINTS[1]]["ms"]["plain"],
+        "library_ms_10M": adam[ADAM_POINTS[1]]["ms"]["library"],
+        "bound_ms_10M": adam[ADAM_POINTS[1]]["bound"].ms,
+        "bound_by": adam[ADAM_POINTS[0]]["bound"].bound_by}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,7 +4,8 @@ gslidar_tpu/engine/train.py; reference train.py:150-375).
 One step renders one camera through the kernels, assembles the losses,
 runs autograd back through the backward compositing kernel, preprocess,
 SH and the model activations, accumulates the densification statistics
-off a zero T tap, and applies per-group Adam to the gaussians and the
+off a zero T tap while they are on, and applies Adam to the gaussians
+(``adam_step``: one kernel launch over every group on the card) and the
 prior's own Adam. The state is a ``TrainState`` of exact-size tensors.
 ``state_to_numpy`` and ``state_from_numpy`` carry it to and from the
 layout of gslidar_tpu's TrainState.
@@ -118,7 +119,9 @@ def make_train_step(args, cfg: G.GaussianConfig, settings: RasterSettings,
     ``step.render``, ``step.losses``, ``step.backward`` (the
     ``torch.autograd.grad`` call; beneath it, on autograd's thread,
     ``bwd.losses``, ``bwd.render`` and ``bwd.activations``),
-    ``step.stats``, ``step.adam`` and ``step.prior_adam``."""
+    ``step.stats``, ``step.adam`` and ``step.prior_adam``. With
+    ``stats_on`` False the step makes no T tap and computes neither the
+    statistics' splat frame nor their viewspace gradient."""
     dynamic = bool(args.dynamic)
     median_depth = bool(args.get("median_depth", False))
     sf = float(args.scale_factor)
@@ -130,9 +133,11 @@ def make_train_step(args, cfg: G.GaussianConfig, settings: RasterSettings,
         params = {k: v.detach().requires_grad_(True)
                   for k, v in state.params.items()}
         prior = state.prior.detach().requires_grad_(True)
-        n = state.aux.alive.shape[0]
-        T_tap = torch.zeros(n, 3, 3, device=prior.device,
-                            requires_grad=True)
+        # the splat frame's zero tap, whose gradient the statistics read;
+        # none while they are off
+        T_tap = torch.zeros(state.aux.alive.shape[0], 3, 3,
+                            device=prior.device,
+                            requires_grad=True) if stats_on else None
         with span("step.render"):
             pkg = render(params, state.aux.alive, cam.viewmat, cam.campos,
                          cam.timestamp, cam.towards_idx, prior, bg, sh_degree,
@@ -151,21 +156,22 @@ def make_train_step(args, cfg: G.GaussianConfig, settings: RasterSettings,
         backward_begins(loss, "bwd.losses")
         backward_boundary(pkg, "bwd.render")
         with span("step.backward"):
-            grads = torch.autograd.grad(loss, [params[k] for k in keys]
-                                        + [prior, T_tap], allow_unused=True)
+            grads = torch.autograd.grad(
+                loss, [params[k] for k in keys] + [prior]
+                + ([T_tap] if stats_on else []), allow_unused=True)
         gp = {k: torch.zeros_like(params[k]) if g is None else g
               for k, g in zip(keys, grads)}
-        gprior, gtap = grads[-2], grads[-1]
+        gprior = grads[len(keys)]
 
         with torch.no_grad():
             # densification statistics (reference train.py:356-362)
             with span("step.stats"):
-                vs_grad = densify_grads_from_T_tap(
-                    gtap, _transmat_for_stats(state.params, cam.viewmat, cfg,
-                                              cam.timestamp, time_shift),
-                    settings)
                 aux = state.aux
                 if stats_on:
+                    vs_grad = densify_grads_from_T_tap(
+                        grads[-1], _transmat_for_stats(
+                            state.params, cam.viewmat, cfg, cam.timestamp,
+                            time_shift), settings)
                     aux = add_densification_stats(aux, vs_grad, gp["t"],
                                                   pkg.radii, pkg.visibility)
             with span("step.adam"):

@@ -120,6 +120,13 @@ SIGNATURES = {
         _P, _P, _P, _P,                  # idx1, idx2, g1, g2
         _P, _P, _P,                      # dx1, dx2, stream
     ],
+    "gslidar_adam": [
+        _I, _I, _P, _P, _P,              # device, groups, ptrs, sizes, lrs
+                                         # (host arrays)
+        _F, _F, _F, _F, _F, _F, _F,      # b1, 1 - b1, b2, 1 - b2, 1 / c1,
+                                         # 1 / c2, eps
+        _P,                              # stream
+    ],
     "gslidar_preprocess_bwd": [
         _I, _P,                          # device, params (host PrepParams)
         _P, _P, _P, _P, _P, _P,          # means, scales, quats, shs,

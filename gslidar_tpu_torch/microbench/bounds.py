@@ -203,6 +203,23 @@ def chamfer_bound(n: int, m: int, clock_hz: float) -> tuple[Bound, Bound]:
                                 clock_hz)))
 
 
+# --------------------------------------------------------------- adam
+# per element (csrc/adam.cu): the parameter, gradient and two moments read
+# once and the new parameter and moments written once
+# (benchmark/counts.py ADAM_BYTES); 12 adds and multiplies, a square root
+# and a division
+ADAM_BYTES = 7 * 4
+ADAM_FP32, ADAM_MUFU = 12, 2
+
+
+def adam_bound(elements: int, clock_hz: float) -> Bound:
+    """The least time of one Adam step over ``elements`` float32
+    parameters, all groups together."""
+    return bound(bytes=bytes_ms(elements * ADAM_BYTES),
+                 fp32=issue_ms(elements * ADAM_FP32, "fp32", clock_hz),
+                 mufu=issue_ms(elements * ADAM_MUFU, "mufu", clock_hz))
+
+
 # ---------------------------------------------------------- op chains
 # per element and op, the instructions each pipe must issue (float32;
 # bfloat16 packs two elements per instruction where sm_90a has the packed

@@ -6,18 +6,26 @@ The moments are plain tensors rather than a ``torch.optim`` state, so that
 densification can cut, gather and zero them per gaussian, as the
 reference's optimizer surgery does (gaussian_model.py:328-412). xyz and t
 decay log-linearly over training; the other groups are constant.
+
+``adam_step`` updates every group: on CUDA tensors in one launch of the
+kernel of csrc/adam.cu (``_adam_step_kernel``, counted as
+``launches.adam``), on CPU tensors by the plain version,
+``adam_step_reference``. Both return new tensors and leave their inputs
+as they are; on the card the two agree bit for bit.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
 
+from gslidar_tpu_torch.kernels import launch
 from gslidar_tpu_torch.models.gaussians import PARAM_KEYS, Params
-from gslidar_tpu_torch.utils.trace import span
+from gslidar_tpu_torch.utils.trace import count, span
 
 B1, B2, EPS = 0.9, 0.999, 1e-15
 
@@ -86,11 +94,27 @@ def group_lrs(args, iteration) -> Dict[str, float]:
 
 def adam_step(params: Params, grads: Params, state: AdamState,
               lrs: Dict[str, float]) -> tuple[Params, AdamState]:
-    """One Adam step of every group, each in a span ``adam.<group>``;
-    returns new tensors."""
-    count = state.count + 1
-    c1 = 1.0 - B1 ** count
-    c2 = 1.0 - B2 ** count
+    """One Adam step of every group (``PARAM_KEYS``); returns new tensors
+    and leaves its inputs as they are. ``_adam_step_kernel`` on CUDA
+    tensors, ``adam_step_reference`` on CPU tensors; any other device, a
+    dtype other than float32, mixed devices, shapes that differ, or a
+    layout ``_rows`` does not take raises (``_check_groups``)."""
+    dev = params[PARAM_KEYS[0]].device
+    if dev.type == "cuda":
+        return _adam_step_kernel(params, grads, state, lrs)
+    _check_groups(params, grads, state)
+    if dev.type != "cpu":
+        raise ValueError(f"adam_step runs on cpu or cuda tensors, not {dev}")
+    return adam_step_reference(params, grads, state, lrs)
+
+
+def adam_step_reference(params: Params, grads: Params, state: AdamState,
+                        lrs: Dict[str, float]) -> tuple[Params, AdamState]:
+    """The plain version of ``adam_step``, on any device: a dozen torch
+    ops a group, each group in a span ``adam.<group>``."""
+    n = state.count + 1
+    c1 = 1.0 - B1 ** n
+    c2 = 1.0 - B2 ** n
     new_p, new_mu, new_nu = {}, {}, {}
     for k in PARAM_KEYS:
         with span("adam." + k):
@@ -100,7 +124,84 @@ def adam_step(params: Params, grads: Params, state: AdamState,
             update = (mu / c1) / (torch.sqrt(nu / c2) + EPS)
             new_p[k] = params[k] - lrs[k] * update
             new_mu[k], new_nu[k] = mu, nu
-    return new_p, AdamState(mu=new_mu, nu=new_nu, count=count)
+    return new_p, AdamState(mu=new_mu, nu=new_nu, count=n)
+
+
+def _rows(name: str, t: torch.Tensor) -> tuple[int, int]:
+    """(row length, row stride), in elements, of ``t`` read as rows over
+    its first dimension: (numel, numel) where it is contiguous; else its
+    rows must each be contiguous and apart by at least their length, as
+    f_dc and f_rest are column ranges of one [P, 16, C] tensor in a model
+    from ``create_from_pcd`` and in the gradient of the cat that joins
+    them. Raises on any other layout."""
+    n = t.numel()
+    if t.is_contiguous():
+        return max(n, 1), max(n, 1)
+    row = n // t.shape[0]
+    if not t[0].is_contiguous() or t.stride(0) < row:
+        raise ValueError(f"{name} is neither contiguous nor contiguous "
+                         f"rows: shape {tuple(t.shape)}, strides "
+                         f"{t.stride()}")
+    return row, t.stride(0)
+
+
+def _check_groups(params: Params, grads: Params, state: AdamState):
+    """Raise unless every group's parameter, gradient and moments are
+    float32 of one shape on one device; returns each group's four
+    ``_rows`` layouts, which raises on any other."""
+    dev = params[PARAM_KEYS[0]].device
+    layouts = []
+    for k in PARAM_KEYS:
+        shape = params[k].shape
+        for what, t in (("parameter", params[k]), ("gradient", grads[k]),
+                        ("mu", state.mu[k]), ("nu", state.nu[k])):
+            if t.dtype is not torch.float32:
+                raise TypeError(f"the {what} of {k} is {t.dtype}, not "
+                                f"float32")
+            if t.device != dev:
+                raise ValueError(f"the {what} of {k} is on {t.device}, the "
+                                 f"parameters on {dev}")
+            if t.shape != shape:
+                raise ValueError(f"the {what} of {k} is {tuple(t.shape)}, "
+                                 f"the parameter {tuple(shape)}")
+            layouts += _rows(f"the {what} of {k}", t)
+    return layouts
+
+
+@span("adam.kernel")
+def _adam_step_kernel(params: Params, grads: Params, state: AdamState,
+                      lrs: Dict[str, float]) -> tuple[Params, AdamState]:
+    """``adam_step`` as one launch of the kernel of csrc/adam.cu over every
+    group of CUDA tensors, which ``_check_groups`` checks first, in a span
+    ``adam.kernel`` (a profiler links the launch, which no torch op
+    makes, to it). The constants are the float32s the plain version's ops
+    make of its host scalars (each ``c_float`` argument rounds its double
+    to the nearest float32, as torch does)."""
+    layouts = _check_groups(params, grads, state)
+    dev = params[PARAM_KEYS[0]].device
+    n = state.count + 1
+    c1 = 1.0 - B1 ** n
+    c2 = 1.0 - B2 ** n
+    ptrs = (ctypes.c_void_p * (7 * len(PARAM_KEYS)))()
+    sizes = (ctypes.c_longlong * (9 * len(PARAM_KEYS)))()
+    rates = (ctypes.c_float * len(PARAM_KEYS))()
+    new_p, new_mu, new_nu = {}, {}, {}
+    for i, k in enumerate(PARAM_KEYS):
+        p = params[k]
+        new_p[k], new_mu[k], new_nu[k] = outs = [
+            torch.empty(p.shape, dtype=torch.float32, device=dev)
+            for _ in range(3)]
+        ptrs[7 * i:7 * i + 7] = [t.data_ptr() for t in (
+            p, grads[k], state.mu[k], state.nu[k], *outs)]
+        sizes[9 * i:9 * i + 9] = [p.numel(), *layouts[8 * i:8 * i + 8]]
+        rates[i] = float(lrs[k])
+    if any(p.numel() for p in params.values()):
+        # torch multiplies a CUDA tensor divided by a host scalar c by
+        # 1 / c taken in double and rounded to float32
+        launch("gslidar_adam", dev, len(PARAM_KEYS), ptrs, sizes, rates,
+               B1, 1 - B1, B2, 1 - B2, 1.0 / c1, 1.0 / c2, EPS)
+        count("launches.adam")
+    return new_p, AdamState(mu=new_mu, nu=new_nu, count=n)
 
 
 def zero_moments_at(state: AdamState, row_mask: torch.Tensor,

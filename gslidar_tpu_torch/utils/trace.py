@@ -31,8 +31,8 @@ Counters. ``count(name, n)`` adds to a plain integer, always on;
 
 - ``launches.<kernel>``: the port's hand-written kernels' launches
   (``composite_fwd``, ``composite_bwd``, ``preprocess_fwd``,
-  ``preprocess_bwd``, ``chamfer_fwd``, ``chamfer_bwd``, ``gather_rows``,
-  ``op_chain``);
+  ``preprocess_bwd``, ``chamfer_fwd``, ``chamfer_bwd``, ``adam``,
+  ``gather_rows``, ``op_chain``);
 - ``train_steps``: one per training step;
 - ``instances``: the (gaussian, tile) instances binning made, per render;
 - ``host_syncs`` and ``host_syncs.<site>``: one per device-to-host read,
