@@ -280,7 +280,12 @@ forward and backward per step and DP camera (and per ``bench_train_step``
 step in phase 15), a forward per eval pair's PointsMeter, none per
 render. The training phases (6, 10, 12, 13, 14) and ``bench_train_step``
 hold each step to one Adam launch (``launches.adam``; ``StepLaunches``),
-but a densify iteration's, which applies no update and launches none.
+but a densify iteration's, which applies no update and launches none,
+and to two replays of the losses' CUDA graph pair per camera
+(``loss_graph.replays``: the forward and the backward), with a capture
+per camera only at a step that meets a new resolution
+(``loss_graph.captures``: the resolutions times the cameras a step renders;
+each path starts from no capture).
 
 Tolerances, forward kernel vs plain: color, features, normal, alpha and
 final T at atol 1e-4; mean depth and sum w*d^2 at rtol 1e-4 + atol 1e-3;
@@ -1506,6 +1511,20 @@ def adam_launches():
 # the Adam kernel's launches of each training path's steps, for the
 # kernels line (each path records ``StepLaunches.held``'s count)
 ADAM_BY_PATH = {}
+# each training path's loss graphs (``StepLaunches.graphs_held``'s
+# summary), for the kernels line
+GRAPHS_BY_PATH = {}
+
+
+def graph_counts():
+    """The losses' CUDA graph pairs replayed and captured so far
+    (``loss_graph.replays``, ``loss_graph.captures``) and the keys they
+    were captured under."""
+    from gslidar_tpu_torch.engine import loss_graph
+    from gslidar_tpu_torch.utils.trace import counters
+    c = counters()
+    return (c.get("loss_graph.replays", 0), c.get("loss_graph.captures", 0),
+            len(loss_graph.captures()))
 
 
 class StepLaunches:
@@ -1516,14 +1535,21 @@ class StepLaunches:
     forward, backward, preprocess forward, backward, chamfer forward,
     backward) per step, ``adam`` the Adam kernel's launches per step;
     ``skip("densify")`` marks the step before it as one that applies no
-    update (the loop's densify iterations)."""
+    update (the loop's densify iterations). ``graphs`` lists the losses'
+    graph replays, captures and new capture keys per step; it drops every
+    capture first, so that the path's own are counted."""
 
     def __init__(self):
+        from gslidar_tpu_torch.engine import loss_graph
+        loss_graph.clear()
         self.last = launch_counts()
         self.last_adam = adam_launches()
+        self.last_graph = graph_counts()
         self.per_step, self.adam, self.no_update = [], [], set()
+        self.graphs = []
         self.other = (0,) * len(self.last)
         self.other_adam = 0
+        self.other_graph = (0, 0, 0)
 
     def step(self):
         now = launch_counts()
@@ -1532,6 +1558,10 @@ class StepLaunches:
         now = adam_launches()
         self.adam.append(now - self.last_adam)
         self.last_adam = now
+        now = graph_counts()
+        self.graphs.append(tuple(n - l for n, l in
+                                 zip(now, self.last_graph)))
+        self.last_graph = now
 
     def skip(self, name=None):
         now = launch_counts()
@@ -1541,6 +1571,10 @@ class StepLaunches:
         now = adam_launches()
         self.other_adam += now - self.last_adam
         self.last_adam = now
+        now = graph_counts()
+        self.other_graph = tuple(o + n - l for o, n, l in
+                                 zip(self.other_graph, now, self.last_graph))
+        self.last_graph = now
         if name == "densify":
             self.no_update.add(len(self.adam) - 1)
 
@@ -1551,6 +1585,21 @@ class StepLaunches:
         return self.other_adam == 0 and self.adam == [
             int(i not in self.no_update) for i in range(len(self.adam))
         ], sum(self.adam)
+
+    def graphs_held(self, cameras=1):
+        """(whether each step replayed the losses' graph pair twice per
+        camera and captured ``cameras`` pairs under each key it met first,
+        none elsewhere, and no event replayed or captured one; a summary:
+        the replays per step, the captures, the keys)."""
+        from gslidar_tpu_torch.engine import loss_graph
+        ok = (self.other_graph == (0, 0, 0)
+              and all(r == 2 * cameras and c == k * cameras
+                      for r, c, k in self.graphs)
+              and all(n == cameras for n in loss_graph.captures()))
+        return ok, {
+            "replays_per_step": sorted({r for r, _, _ in self.graphs}),
+            "captures": sum(c for _, c, _ in self.graphs),
+            "resolutions": sum(k for _, _, k in self.graphs)}
 
 
 def phase_train(device, init_params):
@@ -1614,8 +1663,10 @@ def phase_train(device, init_params):
     core = ("xyz", "f_dc", "opacity", "scaling", "rotation")
     shutil.rmtree(args.model_path, ignore_errors=True)   # its checkpoint
     adam_ok, ADAM_BY_PATH["training (phase 6)"] = steps.held()
+    graph_ok, GRAPHS_BY_PATH["training (phase 6)"] = steps.graphs_held()
+    say(6, f"loss graphs: {GRAPHS_BY_PATH['training (phase 6)']}")
     if (len(losses) != TRAIN_STEPS or any(d != ONE_STEP for d in per_step)
-            or not adam_ok
+            or not adam_ok or not graph_ok
             or not all(math.isfinite(x) for x in losses) or not finite
             or moved != expect or not prior_moved
             or not all(expect[k] for k in core)):
@@ -1808,6 +1859,8 @@ def phase_train_densify(device, init_params, smi):
     per_step = steps.per_step
     adam_ok, ADAM_BY_PATH["training with densification (phase 10)"] = (
         steps.held())
+    graph_ok, GRAPHS_BY_PATH["training with densification (phase 10)"] = (
+        steps.graphs_held())
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
 
     # the events against the schedule, on the counts observed
@@ -1892,6 +1945,10 @@ def phase_train_densify(device, init_params, smi):
                 for it, (sec, splits) in rec["eval_s"].items()))
     resume_adam_ok, ADAM_BY_PATH["resumed training (phase 10)"] = (
         steps.held())
+    resume_graph_ok, GRAPHS_BY_PATH["resumed training (phase 10)"] = (
+        steps.graphs_held())
+    say(10, "loss graphs: " + json.dumps(
+        {k: v for k, v in GRAPHS_BY_PATH.items() if "(phase 10)" in k}))
     files = {it: os.path.exists(os.path.join(run, "ckpt",
                                              f"chkpnt{it}.npz"))
              for it in (12, DENSIFY_ITERATIONS)}
@@ -1899,6 +1956,7 @@ def phase_train_densify(device, init_params, smi):
     if (wrong or bad or len(losses) != DENSIFY_ITERATIONS
             or any(d != ONE_STEP for d in per_step + steps.per_step)
             or not adam_ok or not resume_adam_ok
+            or not graph_ok or not resume_graph_ok
             or 8 not in rec["densify"] or "reset" not in rec["events"][6]
             or "upscale" not in rec["events"][10]
             or rec.get("kernels_checked") != 9
@@ -2491,10 +2549,13 @@ def phase_opv2v(smi, device, tree_kw=None, overrides=()):
     full, prev, again = (client.get(k, {}) for k in (
         "full", "preview", "full again"))
     adam_ok, ADAM_BY_PATH["OPV2V training (phase 12)"] = steps.held()
+    graph_ok, GRAPHS_BY_PATH["OPV2V training (phase 12)"] = (
+        steps.graphs_held())
+    say(12, f"loss graphs: {GRAPHS_BY_PATH['OPV2V training (phase 12)']}")
     if (wrong or bad or len(losses) != OPV2V_ITERATIONS
             or n_points != args.num_pts or (n_train, n_test) != (48, 3)
             or any(d != ONE_STEP for d in per_step)
-            or not adam_ok
+            or not adam_ok or not graph_ok
             or dens != [8, 12] or not shifted
             or not all(rec["moved"].get(k) for k in (
                 "velocity", "t", "scaling_t"))
@@ -2659,9 +2720,13 @@ def phase_dp_train(device, init_params, group, smi):
     core = ("xyz", "f_dc", "opacity", "scaling", "rotation")
     adam_ok, ADAM_BY_PATH["data-parallel training (phase 13)"] = (
         steps.held())
+    graph_ok, GRAPHS_BY_PATH["data-parallel training (phase 13)"] = (
+        steps.graphs_held(DP_CAMERAS))
+    say(13, "loss graphs: "
+        f"{GRAPHS_BY_PATH['data-parallel training (phase 13)']}")
     if (bad or len(losses) != DP_ITERATIONS
             or any(d != (DP_CAMERAS,) * len(ONE_STEP) for d in steps.per_step)
-            or not adam_ok
+            or not adam_ok or not graph_ok
             or any(r != 2 for r in reduces)
             or "densify" not in rec["events"].get(8, [])
             or "eval" not in rec["events"].get(DP_ITERATIONS, [])
@@ -3545,10 +3610,14 @@ def phase_kitti360(smi, device, points=KITTI_POINTS, overrides=(),
                          for i in checked[1:]))
     adam_ok, ADAM_BY_PATH["kitti360_nvs_10750 training (phase 14)"] = (
         steps.held())
+    graph_ok, GRAPHS_BY_PATH["kitti360_nvs_10750 training (phase 14)"] = (
+        steps.graphs_held())
+    say(14, "loss graphs: " + json.dumps(
+        GRAPHS_BY_PATH["kitti360_nvs_10750 training (phase 14)"]))
     if (wrong or bad or len(losses) != K10750_ITERATIONS
             or n_points != args.num_pts or n_test != 4
             or any(d != ONE_STEP for d in per_step)
-            or not adam_ok
+            or not adam_ok or not graph_ok
             or n_final < cap_min or not at_cap or not at_3m
             or not checks_ok or not same or not finite
             or render_launches != [4, 0, 4, 0, 0, 0]
@@ -4583,7 +4652,8 @@ def main():
         "plain_ms_10M": adam[ADAM_POINTS[1]]["ms"]["plain"],
         "library_ms_10M": adam[ADAM_POINTS[1]]["ms"]["library"],
         "bound_ms_10M": adam[ADAM_POINTS[1]]["bound"].ms,
-        "bound_by": adam[ADAM_POINTS[0]]["bound"].bound_by}]}))
+        "bound_by": adam[ADAM_POINTS[0]]["bound"].bound_by}],
+        "loss_graphs_by_path": GRAPHS_BY_PATH}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

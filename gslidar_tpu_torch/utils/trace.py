@@ -35,6 +35,9 @@ Counters. ``count(name, n)`` adds to a plain integer, always on;
   ``gather_rows``, ``op_chain``);
 - ``train_steps``: one per training step;
 - ``instances``: the (gaussian, tile) instances binning made, per render;
+- ``loss_graph.captures`` and ``loss_graph.replays``: the losses' CUDA
+  graph pairs captured, and their forwards and backwards replayed
+  (``engine/loss_graph.py``);
 - ``host_syncs`` and ``host_syncs.<site>``: one per device-to-host read,
   counted at the line that causes it (``host_sync``); a read inside a
   backward node of torch's is counted at the forward call that makes the
@@ -43,6 +46,7 @@ Counters. ``count(name, n)`` adds to a plain integer, always on;
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
 
@@ -129,6 +133,28 @@ def reset_counters() -> None:
     """Clear every counter."""
     with _LOCK:
         _COUNTS.clear()
+
+
+@contextlib.contextmanager
+def counts_apart():
+    """``with counts_apart() as made:`` the counts made inside, as a dict
+    ``made`` filled when the block ends, taken back out of the counters
+    (a CUDA graph's capture records its kernels' launches this way, to
+    count them again at each replay)."""
+    made = {}
+    before = counters()
+    try:
+        yield made
+    finally:
+        with _LOCK:
+            for k, n in _COUNTS.items():
+                if n != before.get(k, 0):
+                    made[k] = n - before.get(k, 0)
+            for k, n in made.items():
+                if k in before:
+                    _COUNTS[k] -= n
+                else:
+                    del _COUNTS[k]
 
 
 def count_sync(site: str, n: int = 1) -> None:
