@@ -1,10 +1,13 @@
 """The training step, densify and the opacity reset (port of
 gslidar_tpu/engine/train.py; reference train.py:150-375).
 
-One step renders one camera through the kernels, assembles the losses,
-runs autograd back through the backward compositing kernel, preprocess,
-SH and the model activations, accumulates the densification statistics
-off a zero T tap while they are on, and applies Adam to the gaussians
+A step is two functions, shared by ``make_train_step`` (one camera) and
+``parallel.shard.make_parallel_train_step`` (B cameras over a group).
+``grad_pass`` renders its cameras through the kernels, assembles the
+losses and runs autograd back through the backward compositing kernel,
+preprocess, SH and the model activations, with the densification
+statistics off a zero T tap per camera while they are on. ``update``
+accumulates those statistics and applies Adam to the gaussians
 (``adam_step``: one kernel launch over every group on the card) and the
 prior's own Adam. The state is a ``TrainState`` of exact-size tensors.
 ``state_to_numpy`` and ``state_from_numpy`` carry it to and from the
@@ -113,86 +116,135 @@ def make_train_step(args, cfg: G.GaussianConfig, settings: RasterSettings,
     gradient and the prior's (``"prior"``). ``stats_on`` gates the
     densification statistics; ``apply_update=False`` skips the gaussians'
     Adam (the reference's densify iterations, train.py:356-375); the prior
-    always steps.
+    always steps. The step is ``grad_pass`` of one camera, then ``update``.
 
     Each step counts ``train_steps``. Its spans: ``step``, and inside it
     ``step.render``, ``step.losses``, ``step.backward`` (the
     ``torch.autograd.grad`` call; beneath it, on autograd's thread,
     ``bwd.losses``, ``bwd.render`` and ``bwd.activations``),
-    ``step.stats``, ``step.adam`` and ``step.prior_adam``. With
-    ``stats_on`` False the step makes no T tap and computes neither the
-    statistics' splat frame nor their viewspace gradient."""
-    dynamic = bool(args.dynamic)
-    median_depth = bool(args.get("median_depth", False))
-    sf = float(args.scale_factor)
-
+    ``step.stats``, ``step.adam`` and ``step.prior_adam``."""
     @span("step")
     def train_step(state: TrainState, cam: CameraBatch, iteration,
                    sh_degree, time_shift, stats_on, apply_update=True):
         count("train_steps")
-        params = {k: v.detach().requires_grad_(True)
-                  for k, v in state.params.items()}
-        prior = state.prior.detach().requires_grad_(True)
-        # the splat frame's zero tap, whose gradient the statistics read;
-        # none while they are off
-        T_tap = torch.zeros(state.aux.alive.shape[0], 3, 3,
-                            device=prior.device,
-                            requires_grad=True) if stats_on else None
-        with span("step.render"):
-            pkg = render(params, state.aux.alive, cam.viewmat, cam.campos,
-                         cam.timestamp, cam.towards_idx, prior, bg, sh_degree,
-                         sf, cfg, settings, dynamic=dynamic,
-                         median_depth=median_depth, time_shift=time_shift,
-                         T_tap=T_tap)
-        with span("step.losses"):
-            opa = G.get_opacity(params)[:, 0]
-            loss, log = compute_losses(pkg, cam.pts_depth, cam.pts_intensity,
-                                       iteration, args, opa,
-                                       state.aux.alive.to(torch.float32))
-        keys = list(params)
-        # the backward by layer, while a profiler records: the losses, the
-        # render from its outputs, the activations from the rasterizer's
-        # inputs (``render``) to the end
-        backward_begins(loss, "bwd.losses")
-        backward_boundary(pkg, "bwd.render")
-        with span("step.backward"):
-            grads = torch.autograd.grad(
-                loss, [params[k] for k in keys] + [prior]
-                + ([T_tap] if stats_on else []), allow_unused=True)
-        gp = {k: torch.zeros_like(params[k]) if g is None else g
-              for k, g in zip(keys, grads)}
-        gprior = grads[len(keys)]
-
-        with torch.no_grad():
-            # densification statistics (reference train.py:356-362)
-            with span("step.stats"):
-                aux = state.aux
-                if stats_on:
-                    vs_grad = densify_grads_from_T_tap(
-                        grads[-1], _transmat_for_stats(
-                            state.params, cam.viewmat, cfg, cam.timestamp,
-                            time_shift), settings)
-                    aux = add_densification_stats(aux, vs_grad, gp["t"],
-                                                  pkg.radii, pkg.visibility)
-            with span("step.adam"):
-                if apply_update:
-                    new_params, new_opt = adam_step(
-                        state.params, gp, state.opt,
-                        group_lrs(args, iteration))
-                else:
-                    new_params, new_opt = state.params, state.opt
-            with span("step.prior_adam"):
-                new_prior, new_prior_opt = PriorAdam.step(
-                    state.prior, gprior, state.prior_opt,
-                    args.raydrop_prior_lr)
-        log = {k: v.detach() if torch.is_tensor(v) else v
-               for k, v in log.items()}
-        log["num_pairs"] = pkg.num_pairs
-        return (TrainState(new_params, aux, new_opt, new_prior,
-                           new_prior_opt), loss.detach(), log,
-                {**gp, "prior": gprior})
+        g = grad_pass(args, cfg, settings, bg, state, [cam], [time_shift],
+                      iteration, sh_degree, stats_on)
+        return (update(args, state, g.params, g.prior, g.stats, iteration,
+                       apply_update), g.loss,
+                {**g.logs[0], "num_pairs": g.num_pairs},
+                {**g.params, "prior": g.prior})
 
     return train_step
+
+
+class StepGrads(NamedTuple):
+    """What ``grad_pass`` gives ``update`` and the data-parallel step."""
+    params: dict                # each param group's gradient
+    prior: torch.Tensor         # the prior's gradient
+    stats: list                 # per camera (viewspace gradient [P, 2], t
+                                # gradient [P, 1], radii, visible), or []
+    loss: torch.Tensor          # the cameras' summed loss over ``scale``
+    logs: list                  # each camera's loss terms
+    num_pairs: int              # the largest instance count
+
+
+def grad_pass(args, cfg: G.GaussianConfig, settings: RasterSettings, bg,
+              state: TrainState, cams, time_shifts, iteration, sh_degree,
+              stats_on, scale=1) -> StepGrads:
+    """Render each camera of ``cams`` at its shift and assemble its losses;
+    one ``torch.autograd.grad`` of their sum over ``scale`` gives the
+    gaussians' and the prior's gradients and, only while ``stats_on``,
+    each camera's densification statistics, from a zero T tap on its splat
+    frame (reference train.py:356-362), its gradients times ``scale``.
+
+    A camera's t gradient is that of a zero t tap of its own when several
+    cameras share the backward, and the parameter's own with one. With
+    the statistics off no tap is made, and neither the statistics' splat
+    frame nor their viewspace gradient is computed."""
+    params = {k: v.detach().requires_grad_(True)
+              for k, v in state.params.items()}
+    prior = state.prior.detach().requires_grad_(True)
+    P, dev = state.aux.alive.shape[0], prior.device
+    split_t = stats_on and len(cams) > 1
+    T_taps, t_taps, pkgs, logs, loss = [], [], [], [], None
+    for cam, shift in zip(cams, time_shifts):
+        pc = params
+        if stats_on:
+            T_taps.append(torch.zeros(P, 3, 3, device=dev,
+                                      requires_grad=True))
+        if split_t:
+            t_taps.append(torch.zeros(P, 1, device=dev, requires_grad=True))
+            pc = {**params, "t": params["t"] + t_taps[-1]}
+        with span("step.render"):
+            pkg = render(pc, state.aux.alive, cam.viewmat, cam.campos,
+                         cam.timestamp, cam.towards_idx, prior, bg, sh_degree,
+                         float(args.scale_factor), cfg, settings,
+                         dynamic=bool(args.dynamic),
+                         median_depth=bool(args.get("median_depth", False)),
+                         time_shift=shift,
+                         T_tap=T_taps[-1] if stats_on else None)
+        with span("step.losses"):
+            opa = G.get_opacity(pc)[:, 0]
+            l, log = compute_losses(pkg, cam.pts_depth, cam.pts_intensity,
+                                    iteration, args, opa,
+                                    state.aux.alive.to(torch.float32))
+        loss = l if loss is None else loss + l
+        pkgs.append(pkg)
+        logs.append({k: v.detach() if torch.is_tensor(v) else v
+                     for k, v in log.items()})
+    if scale != 1:
+        loss = loss / scale
+    # the backward by layer, while a profiler records: the losses, the
+    # render from its outputs, the activations from the rasterizer's
+    # inputs (``render``) to the end
+    backward_begins(loss, "bwd.losses")
+    backward_boundary([t for pkg in pkgs for t in pkg], "bwd.render")
+    inputs = [*params.values(), prior, *T_taps, *t_taps]
+    with span("step.backward"):
+        grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(inputs, grads)]
+    gp = dict(zip(params, grads))
+    stats, n = [], len(params) + 1
+    if stats_on:
+        with torch.no_grad(), span("step.stats"):
+            for j, (cam, shift, pkg) in enumerate(zip(cams, time_shifts,
+                                                      pkgs)):
+                gT = grads[n + j]
+                gt = grads[n + len(cams) + j] if split_t else gp["t"]
+                if scale != 1:
+                    gT, gt = gT * scale, gt * scale
+                vs = densify_grads_from_T_tap(gT, _transmat_for_stats(
+                    state.params, cam.viewmat, cfg, cam.timestamp, shift),
+                    settings)
+                stats.append((vs, gt, pkg.radii, pkg.visibility))
+    return StepGrads(gp, grads[n - 1], stats, loss.detach(), logs,
+                     max(pkg.num_pairs for pkg in pkgs))
+
+
+def update(args, state: TrainState, grads: dict, grad_prior, stats,
+           iteration, apply_update=True) -> TrainState:
+    """The new state: ``stats`` (``StepGrads.stats``) added to the
+    densification statistics in camera order, Adam on the gaussians'
+    ``grads`` if ``apply_update``, and the prior's Adam on ``grad_prior``.
+    With no statistics the state's ``aux`` is returned as it was."""
+    with torch.no_grad():
+        with span("step.stats"):
+            aux = state.aux
+            for s in stats:
+                aux = add_densification_stats(aux, *s)
+        with span("step.adam"):
+            if apply_update:
+                new_params, new_opt = adam_step(
+                    state.params, grads, state.opt,
+                    group_lrs(args, iteration))
+            else:
+                new_params, new_opt = state.params, state.opt
+        with span("step.prior_adam"):
+            new_prior, new_prior_opt = PriorAdam.step(
+                state.prior, grad_prior, state.prior_opt,
+                args.raydrop_prior_lr)
+    return TrainState(new_params, aux, new_opt, new_prior, new_prior_opt)
 
 
 def make_densify_fn(args, cfg: G.GaussianConfig):

@@ -6,7 +6,8 @@
   ``Loopback`` runs all n ranks in one process, as a virtual n-device
   mesh does for the JAX package, and is chosen only explicitly.
 * ``shard.py``: the group's setup (``init_group``, ``make_mesh``) and
-  the data-parallel train step (``make_parallel_train_step``).
+  the data-parallel train step (``make_parallel_train_step``): the
+  engine's ``grad_pass`` and ``update`` with the collectives between.
 * ``pano_shard.py``: the hfov-sliced, SH-sharded and gaussian-sharded
   single-frame 360° renders.
 

@@ -3,23 +3,24 @@ gslidar_tpu/parallel/shard.py).
 
 One iteration trains B cameras: rank r of W renders and differentiates
 cameras [r·B/W, (r+1)·B/W) of the iteration's global batch. Parameters
-and optimizer state are replicated. The math is the JAX step's
-(``shard.py:87-156`` there):
+and optimizer state are replicated. The step is the single-camera step's
+body, ``engine.train.grad_pass`` and ``engine.train.update``, with the
+collectives between them; the math is the JAX step's (``shard.py:87-156``
+there):
 
-* camera i renders with its own zero T tap [P, 3, 3] and a zero t tap
-  [P, 1] added to the ``t`` parameter, so ONE ``torch.autograd.grad``
-  of the rank's loss, the sum of its cameras' losses over the global B,
-  yields the parameter, prior and per-camera tap gradients;
+* ``grad_pass`` of the rank's cameras at scale B: ONE
+  ``torch.autograd.grad`` of the sum of their losses over the global B
+  gives the parameter and prior gradients and, while the statistics are
+  on, each camera's (its viewspace gradient from its T tap's, its
+  t-gradient from its t tap's, or the parameter's with one camera on the
+  rank, both times B, its radii and visibility);
 * the parameter and prior gradients and the loss terms are all-reduced
   (sum) in one flat bucket, the instance count by a maximum;
-* each camera's densification statistics (its viewspace gradient from
-  its T tap's, its t-gradient from its t tap's, both times B, its radii
-  and visibility) are all-gathered and applied by
-  ``add_densification_stats`` in global camera order 0..B-1 on every
-  rank, as B sequential single-camera steps would apply them, so the
-  statistics stay identical across ranks;
-* per-group Adam and the prior's Adam run replicated on the reduced
-  gradients.
+* while the statistics are on, each camera's are all-gathered and
+  ``update`` adds them in global camera order 0..B-1 on every rank, as B
+  sequential single-camera steps would, so they stay identical across
+  ranks; then per-group Adam and the prior's Adam run replicated on the
+  reduced gradients.
 
 The collectives run at every world size, one rank included.
 """
@@ -28,22 +29,17 @@ from __future__ import annotations
 
 import os
 import socket
-from typing import NamedTuple, Sequence
+from typing import Sequence
 
 import numpy as np
 import torch
 
-from gslidar_tpu_torch.engine.losses import compute_losses
-from gslidar_tpu_torch.engine.render import render
 from gslidar_tpu_torch.engine.train import (CameraBatch, TrainState,
-                                            _transmat_for_stats)
+                                            grad_pass, update)
 from gslidar_tpu_torch.models import gaussians as G
-from gslidar_tpu_torch.models.densify import add_densification_stats
-from gslidar_tpu_torch.models.optim import adam_step, group_lrs
-from gslidar_tpu_torch.models.raydrop_prior import PriorAdam
 from gslidar_tpu_torch.parallel.comm import Loopback, ProcessGroup
-from gslidar_tpu_torch.raster.rasterize import densify_grads_from_T_tap
 from gslidar_tpu_torch.raster.settings import RasterSettings
+from gslidar_tpu_torch.utils.trace import count, span
 
 
 def _free_port() -> int:
@@ -121,16 +117,6 @@ def camera_at(cams: CameraBatch, i: int) -> CameraBatch:
                        pts_intensity=cams.pts_intensity[i])
 
 
-class RankGrads(NamedTuple):
-    """One rank's share of a data-parallel step."""
-    flat: torch.Tensor      # parameter and prior gradients, then the loss
-                            # terms' sums over its cameras
-    stats: torch.Tensor     # [b, P, 5]: viewspace gradient (2), t
-                            # gradient, radius, visibility, per camera
-    pairs: torch.Tensor     # [1] int64: its largest instance count
-    log_keys: list          # the loss terms' names, in ``flat``'s order
-
-
 def make_parallel_train_step(args, cfg: G.GaussianConfig,
                              settings: RasterSettings, bg, group, *,
                              n_cameras: int | None = None):
@@ -142,111 +128,69 @@ def make_parallel_train_step(args, cfg: G.GaussianConfig,
     shifts, loss and the log's loss terms means over B, ``log
     ["num_pairs"]`` the largest instance count and grads the reduced mean
     gradients (with the prior's as ``"prior"``). B must divide by the
-    group's size."""
+    group's size. Each call counts one ``train_steps`` and has the
+    single-camera step's spans."""
     B = n_cameras or group.size
     if B % group.size:
         raise ValueError(f"{B} cameras per step do not divide over "
                          f"{group.size} ranks")
     per_rank = B // group.size
-    dynamic = bool(args.dynamic)
-    median_depth = bool(args.get("median_depth", False))
-    sf = float(args.scale_factor)
 
     def rank_grads(state, cams, r, iteration, sh_degree, time_shift,
-                   keys):
-        params = {k: v.detach().requires_grad_(True)
-                  for k, v in state.params.items()}
-        prior = state.prior.detach().requires_grad_(True)
-        P = state.aux.alive.shape[0]
-        dev = prior.device
-        alive_f = state.aux.alive.to(torch.float32)
+                   stats_on):
+        """Rank r's share, packed for the collectives: its parameter and
+        prior gradients, then its loss terms' sums (names in the last
+        item's order), in one flat vector; its cameras' statistics [b, P,
+        5] (viewspace gradient (2), t gradient, radius, visibility), None
+        while they are off; its largest instance count, [1] int64."""
         mine = range(r * per_rank, (r + 1) * per_rank)
-        taps, pkgs, logs, loss = [], [], [], 0.0
-        for i in mine:
-            cam = camera_at(cams, i)
-            T_tap = torch.zeros(P, 3, 3, device=dev, requires_grad=True)
-            t_tap = torch.zeros(P, 1, device=dev, requires_grad=True)
-            pi = {**params, "t": params["t"] + t_tap}
-            pkg = render(pi, state.aux.alive, cam.viewmat, cam.campos,
-                         cam.timestamp, cam.towards_idx, prior, bg,
-                         sh_degree, sf, cfg, settings, dynamic=dynamic,
-                         median_depth=median_depth,
-                         time_shift=time_shift[i], T_tap=T_tap)
-            l_i, log_i = compute_losses(pkg, cam.pts_depth,
-                                        cam.pts_intensity, iteration, args,
-                                        G.get_opacity(pi)[:, 0], alive_f)
-            loss = loss + l_i
-            taps += [T_tap, t_tap]
-            pkgs.append(pkg)
-            logs.append(log_i)
-        grads = torch.autograd.grad(loss / B, [params[k] for k in keys]
-                                    + [prior] + taps, allow_unused=True)
-        n = len(keys) + 1
-        flat = [torch.zeros_like(params[k]) if g is None else g
-                for k, g in zip(keys, grads[:len(keys)])]
-        flat.append(grads[len(keys)])
-        log_keys = sorted(logs[0])
+        g = grad_pass(args, cfg, settings, bg, state,
+                      [camera_at(cams, i) for i in mine],
+                      [time_shift[i] for i in mine], iteration, sh_degree,
+                      stats_on, scale=B)
+        dev, keys = g.prior.device, sorted(g.logs[0])
         with torch.no_grad():
             sums = torch.stack([
                 torch.stack([torch.as_tensor(lg[k], dtype=torch.float32,
-                                             device=dev) for lg in logs]
-                            ).sum() for k in log_keys])
-            stats = []
-            for j, i in enumerate(mine):
-                cam = camera_at(cams, i)
-                gT, gt = grads[n + 2 * j], grads[n + 2 * j + 1]
-                gT = torch.zeros(P, 3, 3, device=dev) if gT is None else gT
-                gt = torch.zeros(P, 1, device=dev) if gt is None else gt
-                vs = densify_grads_from_T_tap(gT * B, _transmat_for_stats(
-                    state.params, cam.viewmat, cfg, cam.timestamp,
-                    time_shift[i]), settings)
-                stats.append(torch.cat(
-                    [vs, gt * B, pkgs[j].radii[:, None],
-                     pkgs[j].visibility[:, None].to(torch.float32)], 1))
-            pairs = torch.tensor([max(p.num_pairs for p in pkgs)],
-                                 dtype=torch.int64, device=dev)
-            return RankGrads(
-                flat=torch.cat([g.reshape(-1) for g in flat] + [sums]),
-                stats=torch.stack(stats), pairs=pairs, log_keys=log_keys)
+                                             device=dev) for lg in g.logs]
+                            ).sum() for k in keys])
+            stats = torch.stack([
+                torch.cat([vs, gt, radii[:, None],
+                           visible[:, None].to(torch.float32)], 1)
+                for vs, gt, radii, visible in g.stats]) if stats_on else None
+            return (torch.cat([x.reshape(-1) for x in g.params.values()]
+                              + [g.prior.reshape(-1), sums]), stats,
+                    torch.tensor([g.num_pairs], dtype=torch.int64,
+                                 device=dev), keys)
 
+    @span("step")
     def train_step(state: TrainState, cams: CameraBatch, iteration,
                    sh_degree, time_shift, stats_on, apply_update=True):
         if len(cams.timestamp) != B or len(time_shift) != B:
             raise ValueError(f"the step takes {B} cameras and shifts, got "
                              f"{len(cams.timestamp)} and {len(time_shift)}")
-        keys = list(state.params)
-        mine = [rank_grads(state, cams, r, iteration, sh_degree,
-                           [float(t) for t in time_shift], keys)
-                for r in group.ranks]
-        flat = group.all_reduce([m.flat for m in mine], "sum")[0]
-        pairs = group.all_reduce([m.pairs for m in mine], "max")[0]
+        count("train_steps")
+        flats, rows, pairs, keys = zip(*[
+            rank_grads(state, cams, r, iteration, sh_degree,
+                       [float(t) for t in time_shift], stats_on)
+            for r in group.ranks])
+        flat = group.all_reduce(flats, "sum")[0]
+        pairs = group.all_reduce(pairs, "max")[0]
         with torch.no_grad():
             gp, off = {}, 0
-            for k in keys:
-                v = state.params[k]
+            for k, v in state.params.items():
                 gp[k] = flat[off:off + v.numel()].view_as(v)
                 off += v.numel()
             gprior = flat[off:off + state.prior.numel()].view_as(state.prior)
             off += state.prior.numel()
             terms = flat[off:] / B
-            aux = state.aux
-            if stats_on:
-                every = group.all_gather([m.stats for m in mine], 0)[0]
-                for i in range(B):
-                    s = every[i]
-                    aux = add_densification_stats(aux, s[:, :2], s[:, 2:3],
-                                                  s[:, 3], s[:, 4] > 0)
-            if apply_update:
-                new_params, new_opt = adam_step(
-                    state.params, gp, state.opt, group_lrs(args, iteration))
-            else:
-                new_params, new_opt = state.params, state.opt
-            new_prior, new_prior_opt = PriorAdam.step(
-                state.prior, gprior, state.prior_opt, args.raydrop_prior_lr)
-        log = dict(zip(mine[0].log_keys, terms.unbind()))
+            every = group.all_gather(rows, 0)[0] if stats_on else []
+            stats = [(s[:, :2], s[:, 2:3], s[:, 3], s[:, 4] > 0)
+                     for s in every]
+        log = dict(zip(keys[0], terms.unbind()))
         log["num_pairs"] = int(pairs[0])
-        return (TrainState(new_params, aux, new_opt, new_prior,
-                           new_prior_opt), log["loss"], log,
+        return (update(args, state, gp, gprior, stats, iteration,
+                       apply_update), log["loss"], log,
                 {**gp, "prior": gprior})
 
     return train_step

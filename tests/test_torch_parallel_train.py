@@ -117,7 +117,7 @@ def _init_params():
         np.asarray(aux.alive)
 
 
-def _port_setup(np_args, params, alive, group, **over):
+def _port_setup(np_args, params, alive, group, b=B, **over):
     from gslidar_tpu_torch.config import Config
     from gslidar_tpu_torch.engine.train import init_train_state
     from gslidar_tpu_torch.models import gaussians as G
@@ -134,8 +134,8 @@ def _port_setup(np_args, params, alive, group, **over):
     st = RasterSettings(height=H, width=W, vfov=tuple(args.vfov),
                         hfov=tuple(args.hfov), num_extra_features=4)
     bg = torch.tensor([0, 0, 0, 1.0])
-    step = make_parallel_train_step(args, cfg, st, bg, group, n_cameras=B)
-    return args, cfg, st, bg, state, step, _toy_camera_batch(B, H, W)
+    step = make_parallel_train_step(args, cfg, st, bg, group, n_cameras=b)
+    return args, cfg, st, bg, state, step, _toy_camera_batch(b, H, W)
 
 
 def _as_numpy(state, loss, log, grads):
@@ -303,6 +303,99 @@ def test_dp_stats_match_sequential_steps():
         mean = sum(sg[k] for sg in seq_grads) / B
         assert float((g - mean).norm()) <= 2e-4 * float(mean.norm()) + \
             1e-12, k
+
+
+def _leaves(s):
+    import dataclasses
+    aux = [getattr(s.aux, f.name) for f in dataclasses.fields(s.aux)]
+    return [*s.params.values(), *aux, *s.opt.mu.values(), *s.opt.nu.values(),
+            s.opt.count, s.prior, *s.prior_opt]
+
+
+def _bits(x):
+    x = torch.as_tensor(x).contiguous()
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+@pytest.mark.parametrize("apply_update", [True, False])
+@pytest.mark.parametrize("stats_on", [True, False])
+def test_one_camera_dp_step_is_the_single_step(stats_on, apply_update):
+    """A data-parallel step of one camera on one rank is the single-camera
+    step: the same state, loss and gradients, bit for bit (one thread:
+    the CPU's exp is not repeatable across thread chunkings)."""
+    from gslidar_tpu_torch.engine.train import make_train_step
+    from gslidar_tpu_torch.parallel.comm import Loopback
+    from gslidar_tpu_torch.parallel.shard import camera_at
+    params, alive = _init_params()
+    args, cfg, st, bg, state0, dp, cams = _port_setup(
+        _np_args(), params, alive, Loopback(1), b=1)
+    single = make_train_step(args, cfg, st, bg)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        got = dp(state0, cams, ITERATION, 3, [0.05], stats_on,
+                 apply_update=apply_update)
+        want = single(state0, camera_at(cams, 0), ITERATION, 3, 0.05,
+                      stats_on, apply_update=apply_update)
+    finally:
+        torch.set_num_threads(threads)
+    (s1, l1, log1, g1), (s0, l0, log0, g0) = got, want
+    assert torch.equal(_bits(l1), _bits(l0))
+    assert g1.keys() == g0.keys()
+    for k in g0:
+        assert torch.equal(_bits(g1[k]), _bits(g0[k])), k
+    for i, (a, b) in enumerate(zip(_leaves(s1), _leaves(s0))):
+        assert torch.equal(_bits(a), _bits(b)), i
+    assert log1.keys() == log0.keys() and log1["num_pairs"] == \
+        log0["num_pairs"] > 0
+    assert bool(s1.aux.denom.any()) == stats_on
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_dp_step_with_stats_off_computes_none(b, monkeypatch):
+    """With the statistics off the data-parallel step of b cameras on one
+    rank computes neither their splat frame nor their viewspace gradient
+    (refused in ``engine.train`` and in ``parallel.shard`` alike), gathers
+    nothing and returns the statistics it was given."""
+    import gslidar_tpu_torch.engine.train as T
+    import gslidar_tpu_torch.parallel.shard as S
+    from gslidar_tpu_torch.parallel.comm import Loopback
+
+    def refuse(*a, **k):
+        raise AssertionError("statistics computed while they are off")
+    params, alive = _init_params()
+    group = Loopback(1)
+    *_, state0, step, cams = _port_setup(_np_args(), params, alive, group,
+                                         b=b)
+    for mod in (T, S):
+        for name in ("_transmat_for_stats", "densify_grads_from_T_tap"):
+            monkeypatch.setattr(mod, name, refuse, raising=False)
+    new, loss, _, _ = step(state0, cams, 100, 3, [0.0] * b, False)
+    assert new.aux is state0.aux and torch.isfinite(loss)
+    assert bool((new.params["xyz"] != state0.params["xyz"]).any())
+    assert group.calls == {"all_reduce": 2}
+
+
+def test_dp_step_counts_a_step_and_opens_its_spans():
+    """A data-parallel step over two ranks counts one ``train_steps`` and,
+    under the profiler, opens one ``gs.step`` span holding the step's
+    stages, one render and one loss span per camera."""
+    from torch.profiler import ProfilerActivity, profile
+    from gslidar_tpu_torch.parallel.comm import Loopback
+    from gslidar_tpu_torch.utils.trace import counters
+    params, alive = _init_params()
+    *_, state0, step, cams = _port_setup(_np_args(), params, alive,
+                                         Loopback(2))
+    before = counters().get("train_steps", 0)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(state0, cams, 100, 3, [0.0] * B, True)
+    assert counters()["train_steps"] == before + 1
+    names = [e.name[3:] for e in prof.events() if e.name.startswith("gs.")]
+    assert names.count("step") == 1
+    for name, n in (("step.render", B), ("step.losses", B),
+                    ("step.backward", 2), ("step.adam", 1),
+                    ("step.prior_adam", 1)):
+        assert names.count(name) == n, name
 
 
 def test_step_guards():

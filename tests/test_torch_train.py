@@ -197,3 +197,30 @@ def test_train_step_matches_jax():
                                  init_raydrop_prior(STEP_H, STEP_W))
     tstate = TT.state_from_numpy(jax.tree.map(np.asarray, state0), "cpu")
     assert_step_matches(state0, tstate, step_camera(rng))
+
+
+@pytest.mark.parametrize("which", ["single", "parallel"])
+def test_both_steps_reach_adam_through_the_module(which, monkeypatch):
+    """The single-camera step and the data-parallel step (two cameras over
+    a loopback of two ranks) both call ``engine.train.adam_step`` through
+    the module, where a wrapper put in its place sees the call."""
+    import gslidar_tpu_torch.engine.train as T
+    from gslidar_tpu_torch.parallel.comm import Loopback
+    from gslidar_tpu_torch.parallel.shard import camera_at
+    from test_torch_parallel_train import _init_params, _np_args, _port_setup
+    adam, calls = T.adam_step, []
+
+    def wrapped(*a, **k):
+        calls.append(1)
+        return adam(*a, **k)
+    params, alive = _init_params()
+    args, cfg, st, bg, state0, dp, cams = _port_setup(
+        _np_args(), params, alive, Loopback(2), b=2)
+    monkeypatch.setattr(T, "adam_step", wrapped)
+    if which == "single":
+        new = T.make_train_step(args, cfg, st, bg)(
+            state0, camera_at(cams, 0), 100, 3, 0.0, True)[0]
+    else:
+        new = dp(state0, cams, 100, 3, [0.0, 0.0], True)[0]
+    assert calls == [1]
+    assert bool((new.params["xyz"] != state0.params["xyz"]).any())
