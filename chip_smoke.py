@@ -727,8 +727,9 @@ def run_prep_pair(pin, seed):
     (``compare_prep``), then the backward with seeded N(0, 1) cotangents
     of T and color, both versions given the kernel forward's clamp mask,
     each gradient column within PREP_BWD_RTOL of its largest magnitude and
-    the kernel's repeating bit for bit. Their launches are not counted.
-    Returns (ok, forward summary, backward summary)."""
+    the kernel's repeating bit for bit; then the payload layout
+    (``prep_layout``), every check bit for bit. Their launches are not
+    counted. Returns (ok, forward summary, backward summary)."""
     import torch
     from gslidar_tpu_torch.raster import preprocess as pp
     saved = launch_counts()
@@ -740,8 +741,8 @@ def run_prep_pair(pin, seed):
     view = (pin["viewmat"], pin["campos"])
     edges = []
     with torch.no_grad():
-        kern, k_cl = pp._preprocess_kernel(*head, pin["colors"], pin["mask"],
-                                           *view, opts)
+        kern, k_cl = pp._preprocess_kernel(*head, pin["colors"], None,
+                                           pin["mask"], *view, opts)
         plain, p_cl = pp._preprocess_plain(
             *head, pin["mask"], *view, opts.sh_degree, opts.scale_factor,
             opts.settings, opts.scale_modifier, pin["colors"],
@@ -751,20 +752,67 @@ def run_prep_pair(pin, seed):
         del plain, edges
         P, C = kern.T.shape[0], kern.color.shape[1]
         g = torch.Generator(device=kern.T.device).manual_seed(seed)
-        dT = torch.randn(P, 3, 3, generator=g, device=kern.T.device)
-        dc = torch.randn(P, C, generator=g, device=kern.T.device)
+        # a payload's gradient rows (S = 4), and its T and colour columns
+        gpay = torch.randn(P, 14 + C, generator=g, device=kern.T.device)
+        feats = torch.rand(P, 4, generator=g, device=kern.T.device)
+        dT, dc = (x.contiguous() for x in pp.payload_views(gpay, C))
         bwd = (*head[:3], pin["shs"], *view, k_cl, dT, dc, opts)
         kb = pp._preprocess_backward_kernel(*bwd)
         again = pp._preprocess_backward_kernel(*bwd)
         pb = pp.preprocess_backward_reference(
             *head[:3], pin["shs"], *view, opts.sh_degree, k_cl, dT, dc,
             opts.scale_modifier)
+        layout = prep_layout(pin, opts, kern, k_cl, feats, gpay)
         torch.cuda.synchronize()
     set_launch_counts(saved)
     ok_b, summ_b = compare_prep_grads(kb, pb)
-    repeats = all(a is None or torch.equal(a, b) for a, b in zip(kb, again))
+    repeats = all(a is None or torch.equal(pp.sh_rows(a), pp.sh_rows(b))
+                  for a, b in zip(kb, again))
     summ_b["repeats_bitwise"] = repeats
-    return ok_f and ok_b and repeats, summ_f, summ_b
+    summ_f["payload_layout_bitwise"] = layout
+    return (ok_f and ok_b and repeats and all(layout.values()), summ_f,
+            summ_b)
+
+
+def prep_layout(pin, opts, kern, k_clamped, feats, gpay):
+    """The preprocess kernels' payload layout on ``pin``, with the SH as
+    one tensor and as two blocks: the forward given ``feats`` writes
+    ``pack_payload``'s rows of its own separate outputs ``kern`` and the
+    same other fields and clamp mask, and the backward reads T's and the
+    colour's cotangents in place in the payload gradient ``gpay`` as it
+    reads their contiguous copies. Returns {check: bit for bit}."""
+    import torch
+    from gslidar_tpu_torch.raster import preprocess as pp
+    from gslidar_tpu_torch.raster.composite_fwd import pack_payload
+    shs = pp.sh_rows(pin["shs"])
+    forms = {"one tensor": shs}
+    if shs is not None:
+        forms["two blocks"] = (shs[:, :1].contiguous(),
+                               shs[:, 1:].contiguous())
+    want = pack_payload(kern, pin["opacity"], feats)
+    dT, dc = pp.payload_views(gpay, kern.color.shape[1])
+    got = {}
+    for name, sh in forms.items():
+        d, d_cl = pp._preprocess_kernel(
+            pin["means"], pin["scales"], pin["quats"], pin["opacity"], sh,
+            pin["colors"], feats, pin["mask"], pin["viewmat"],
+            pin["campos"], opts)
+        got[f"forward, SH as {name}"] = bool(
+            torch.equal(d.payload, want)
+            and all(torch.equal(getattr(d, f), getattr(kern, f))
+                    for f in (*PREP_FLOATS, *PREP_INTS))
+            and (d_cl is None or torch.equal(d_cl, k_clamped)))
+        del d, d_cl
+        args = (pin["means"], pin["scales"], pin["quats"], sh,
+                pin["viewmat"], pin["campos"], k_clamped)
+        a = pp._preprocess_backward_kernel(*args, dT, dc, opts)
+        b = pp._preprocess_backward_kernel(*args, dT.contiguous(),
+                                           dc.contiguous(), opts)
+        got[f"backward in place, SH as {name}"] = all(
+            torch.equal(pp.sh_rows(x), pp.sh_rows(y)) for x, y in zip(a, b)
+            if x is not None)
+    del want
+    return got
 
 
 def compare_prep_grads(kern, plain):
@@ -772,15 +820,17 @@ def compare_prep_grads(kern, plain):
     d SH or None) each: every gradient column within PREP_BWD_RTOL of its
     largest magnitude, and finite. Returns (ok, summary dict)."""
     import torch
+    from gslidar_tpu_torch.raster import preprocess as pp
     cols, raw = {}, 0.0
     for name, a, b in zip(("means", "scales", "quats", "shs"), kern, plain):
         if b is None:
             continue
+        a, b = pp.sh_rows(a), pp.sh_rows(b)       # the SH's two blocks
         a, b = a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1)
         cols[name] = float(((a - b).abs().amax(0)
                             / b.abs().amax(0).clamp_min(1e-30)).max())
         raw = max(raw, float((a - b).abs().max()))
-    finite = all(bool(torch.isfinite(a).all()) for a in kern
+    finite = all(bool(torch.isfinite(pp.sh_rows(a)).all()) for a in kern
                  if a is not None)
     ok = finite and all(v <= PREP_BWD_RTOL for v in cols.values())
     return ok, dict(max_rel_err_per_column={k: float(f"{v:.3g}")
@@ -3741,7 +3791,8 @@ def phase_train_step(args, scene, init_params, device, smi):
     # the preprocess kernels on the step's own inputs: the forward and a
     # backward of seeded cotangents, then the backward on the step's own
     # cotangents, all against the plain versions
-    m, sc_, q, op, shs, colors, mask, vm, cam, opts = captured["pre"]
+    m, sc_, q, op, shs, colors, _, mask, vm, cam, opts = captured["pre"]
+    shs = pp.sh_rows(shs)           # the render's (f_dc, f_rest) blocks
     ok_p, err_pf, _ = say_prep_pair(
         7, f"the training step's inputs ({n} gaussians)", prep_inputs(
             m, sc_, q, op, shs, mask, vm, cam, opts.sh_degree,

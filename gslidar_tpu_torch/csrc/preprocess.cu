@@ -16,23 +16,36 @@
 // means, two scales, quaternion, opacity, mask and 16 x 4 SH coefficients
 // (about 300 B at SH degree 3) and writes T, xy, depth, normal, colour,
 // radius, the two int rects, the tile count, valid and the clamp mask
-// (about 105 B): at 1M gaussians ~0.41 GB, ~0.12 ms at 3.35 TB/s. The
-// backward reads the cotangents and the inputs again and writes the four
-// gradients, ~650 B a gaussian, ~0.2 ms at 1M. The arithmetic (a few
-// hundred float32 operations and ~50 MUFU operations a gaussian, most
-// of them the 12 samples' atan2f and sqrtf) takes a tenth of that
-// (gslidar_tpu_torch/microbench/bounds.py).
+// (about 105 B; given a payload, its 72 B row in place of T and the
+// colour, and the 16 B of features read): at 1M gaussians ~0.41 GB,
+// ~0.12 ms at 3.35 TB/s. The backward reads the cotangents and the inputs
+// again and writes the four gradients, ~650 B a gaussian, ~0.2 ms at 1M.
+// The arithmetic (a few hundred float32 operations and ~50 MUFU
+// operations a gaussian, most of them the 12 samples' atan2f and sqrtf)
+// takes a tenth of that (gslidar_tpu_torch/microbench/bounds.py).
 //
 // What the design does about it: one pass that reads each input once and
 // writes each output once, with no [P, 12, 3] or [P, 16] intermediates in
 // device memory (the plain PyTorch version makes ~60 launches over such
-// tensors). The SH rows, the one large per-gaussian array, go through
-// shared memory: a block copies its 128 gaussians' contiguous K x C
-// floats with consecutive threads on consecutive words, and each thread
-// reads its own row from there (rows padded by one word, so the 32 rows
-// of a warp fall in 32 banks). The backward writes its d SH rows the same
-// way. It keeps nothing from the forward but the [P, C] clamp mask: it
-// recomputes the rotation, the basis and the view direction.
+// tensors), and none between the model and binning either. The SH rows,
+// the one large per-gaussian array, are read where the model keeps them,
+// as two blocks (the DC coefficient and the rest, each with its own row
+// stride), and go through shared memory: a block copies its 128
+// gaussians' rows with consecutive threads on consecutive words, and
+// each thread reads its own row from there (rows padded by one word, so
+// the 32 rows of a warp fall in 32 banks). Given a payload, the forward
+// writes the forward compositor's [P, 10 + C + S] rows itself (T's
+// columns, opacity, colour, the features: what an eager pack would copy
+// together) into each thread's shared row, and the block copies its rows
+// out whole, as contiguous words. It computes the colour first, and the
+// payload row starts at the offset that puts each channel's colour on a
+// word of that channel's own SH coefficients, already read; T, the
+// opacity and the features follow once every coefficient is read. The
+// backward reads T's cotangent by its strides, in place in the payload's
+// gradient rows, stages the colour's cotangent rows (each read K times)
+// beside the SH rows, and writes its d SH rows through shared memory as
+// two blocks. It keeps nothing from the forward but the [P, C] clamp
+// mask: it recomputes the rotation, the basis and the view direction.
 //
 // Bits: the plain version (raster/preprocess.py ``_preprocess_plain``)
 // writes its small products out as sums in a fixed order and this kernel
@@ -53,6 +66,10 @@
 struct PrepParams {
   int P, K, C, n_sh, width, height, tile_w, tile_h, tiles_x, tiles_y;
   int wrap_x, tight, scale_stride, scale_cols;
+  // the payload's S feature columns; the SH blocks' row strides, and
+  // those of their gradient's; the cotangents' strides (floats)
+  int S, dc_stride, rest_stride, ddc_stride, drest_stride;
+  int dT_row, dT_si, dT_sj, dcolor_row;
   float scale_modifier, hmin, vmin, fW, fH, hrange, vrange, inv_hrange,
       inv_vrange, cv, ch, half_v, half_h, inv_half_v, inv_half_h, near,
       two_pi, inv_two_pi, fTW, fTH, inv_tw, inv_th;
@@ -203,23 +220,69 @@ __device__ __forceinline__ void sh_jacobian(const float dir[3],
     for (int j = 0; j < 3; ++j) J[k][j] = rows[k][j];
 }
 
-// the block's rows [first, first + n) of a [P, row] float array between
-// device and shared memory, consecutive threads on consecutive words;
-// shared rows are row + 1 words apart
-__device__ __forceinline__ void rows_to_shared(const float* __restrict__ g,
-                                               int first, int n, int row,
-                                               float* s) {
-  const long long base = (long long)first * row;
-  for (int i = threadIdx.x; i < n * row; i += blockDim.x)
-    s[(i / row) * (row + 1) + i % row] = __ldg(g + base + i);
+// rows [first, first + n) of a block of `width` floats a row, its rows
+// `stride` floats apart in device memory, to columns [col, col + width)
+// of the block's shared rows, `srow` floats apart, and back; consecutive
+// threads on consecutive words. Each thread steps its (row, column) by
+// the block's width in words, with no division in the loop.
+struct BlockWalk {
+  int r, c, dr, dc, width;
+  __device__ __forceinline__ explicit BlockWalk(int w)
+      : r(threadIdx.x / w), c(threadIdx.x % w), dr(blockDim.x / w),
+        dc(blockDim.x % w), width(w) {}
+  __device__ __forceinline__ void step() {
+    r += dr;
+    c += dc;
+    if (c >= width) c -= width, ++r;
+  }
+};
+
+__device__ __forceinline__ void block_to_shared(const float* __restrict__ g,
+                                                int stride, int first, int n,
+                                                int width, float* s, int srow,
+                                                int col) {
+  if (width <= 0) return;
+  for (BlockWalk w(width); w.r < n; w.step())
+    s[w.r * srow + col + w.c] =
+        __ldg(g + (long long)(first + w.r) * stride + w.c);
 }
 
-__device__ __forceinline__ void rows_from_shared(const float* s, int first,
-                                                 int n, int row,
-                                                 float* __restrict__ g) {
-  const long long base = (long long)first * row;
-  for (int i = threadIdx.x; i < n * row; i += blockDim.x)
-    g[base + i] = s[(i / row) * (row + 1) + i % row];
+__device__ __forceinline__ void block_from_shared(const float* s, int srow,
+                                                  int col, int first, int n,
+                                                  int width,
+                                                  float* __restrict__ g,
+                                                  int stride) {
+  if (width <= 0) return;
+  for (BlockWalk w(width); w.r < n; w.step())
+    g[(long long)(first + w.r) * stride + w.c] = s[w.r * srow + col + w.c];
+}
+
+// the SH rows of the block into its shared rows: the DC block's C
+// coefficients, then the rest block's (K - 1) x C
+__device__ __forceinline__ void sh_to_shared(const PrepParams& p,
+                                             const float* __restrict__ dc,
+                                             const float* __restrict__ rest,
+                                             int first, int n, float* s,
+                                             int srow) {
+  block_to_shared(dc, p.dc_stride, first, n, p.C, s, srow, 0);
+  block_to_shared(rest, p.rest_stride, first, n, (p.K - 1) * p.C, s, srow,
+                  p.C);
+}
+
+// where a thread's payload row starts in its shared row: the colour of
+// channel c then falls on a word of channel c's own SH coefficients (or
+// past them), which the SH colour has read by the time it writes there
+__host__ __device__ __forceinline__ int payload_offset(const PrepParams& p) {
+  return (p.C - 10 % p.C) % p.C;
+}
+
+// floats of a shared row in the forward: the SH coefficients and, with a
+// payload, the payload row it leaves there (0 when neither is staged)
+__host__ __device__ __forceinline__ int fwd_shared_row(const PrepParams& p,
+                                                       bool payload) {
+  const int kc = p.n_sh > 0 ? p.K * p.C : 0;
+  const int d = payload ? payload_offset(p) + 10 + p.C + p.S : 0;
+  return kc > 0 || d > 0 ? (kc > d ? kc : d) + 1 : 0;
 }
 
 // the view matrix's rotation rows and translation
@@ -237,13 +300,17 @@ preprocess_fwd_kernel(PrepParams p, const float* __restrict__ means,
                       const float* __restrict__ quats,
                       const float* __restrict__ opacity,
                       const unsigned char* __restrict__ mask,
-                      const float* __restrict__ shs,
+                      const float* __restrict__ sh_dc,
+                      const float* __restrict__ sh_rest,
+                      const float* __restrict__ features,
+                      const float* __restrict__ colors,
                       const float* __restrict__ viewmat,
                       const float* __restrict__ campos,
                       const float* __restrict__ sin_a,
                       const float* __restrict__ cos_a, float* __restrict__ T,
                       float* __restrict__ xy, float* __restrict__ depth,
                       float* __restrict__ normal, float* __restrict__ color,
+                      float* __restrict__ payload,
                       float* __restrict__ radius_out,
                       int* __restrict__ rect_min, int* __restrict__ rect_max,
                       int* __restrict__ tiles,
@@ -252,159 +319,190 @@ preprocess_fwd_kernel(PrepParams p, const float* __restrict__ means,
   extern __shared__ float sh_rows[];
   const int first = blockIdx.x * THREADS;
   const int n_rows = min(THREADS, p.P - first);
-  const int KC = p.K * p.C;
+  const int srow = fwd_shared_row(p, payload != nullptr);
   if (p.n_sh > 0) {
-    rows_to_shared(shs, first, n_rows, KC, sh_rows);
+    sh_to_shared(p, sh_dc, sh_rest, first, n_rows, sh_rows, srow);
     __syncthreads();
   }
   const int g = first + threadIdx.x;
-  if (g >= p.P) return;
+  if (g < p.P) {
+    float m[3];
+    for (int j = 0; j < 3; ++j) m[j] = __ldg(means + 3 * g + j);
+    // with a payload, this thread's payload row in its shared row: T's
+    // columns as component triples, opacity, colour, the features
+    // (composite_fwd.py pack_payload)
+    float* row = sh_rows + threadIdx.x * srow;
+    float* out = payload ? row + payload_offset(p) : nullptr;
 
-  float M[3][3], t[3];
-  load_view(viewmat, M, t);
-  float m[3], q4[4];
-  for (int j = 0; j < 3; ++j) m[j] = __ldg(means + 3 * g + j);
-  for (int j = 0; j < 4; ++j) q4[j] = __ldg(quats + 4 * g + j);
-  const float s0 = __ldg(scales + (long long)g * p.scale_stride);
-  const float s1 = __ldg(scales + (long long)g * p.scale_stride + 1);
-  const float op = __ldg(opacity + g);
-
-  // the splat frame (preprocess.py build_transmat)
-  float qn[4], qnorm, R[3][3];
-  rotation(q4, qn, &qnorm, R);
-  const float s0m = s0 * p.scale_modifier, s1m = s1 * p.scale_modifier;
-  const float uw[3] = {R[0][0] * s0m, R[1][0] * s0m, R[2][0] * s0m};
-  const float vw[3] = {R[0][1] * s1m, R[1][1] * s1m, R[2][1] * s1m};
-  const float nw[3] = {R[0][2], R[1][2], R[2][2]};
-  float u[3], v[3], pc[3], nc[3];
-  rotate(M, uw, u);
-  rotate(M, vw, v);
-  rotate(M, m, pc);
-  for (int i = 0; i < 3; ++i) pc[i] = pc[i] + t[i];
-  rotate(M, nw, nc);
-  const float flip = dot3(nc, pc) < 0.f ? 1.f : -1.f;
-  for (int j = 0; j < 3; ++j) {
-    T[9 * g + j] = u[j];
-    T[9 * g + 3 + j] = v[j];
-    T[9 * g + 6 + j] = pc[j];
-    normal[3 * g + j] = nc[j] * flip;
-  }
-
-  // the centre (preprocess.py _pano_angles) and the cull
-  const float x = pc[0], y = pc[1], z = pc[2];
-  const bool degen = (x * x + z * z) < 1e-20f;
-  const float xs = degen ? 0.f : x, zs = degen ? 1.f : z;
-  const float phi = atan2f(xs, zs);
-  const float theta = atan2f(sqrtf(xs * xs + zs * zs), -y);
-  const float r = sqrtf(((x * x + y * y) + z * z) + 1e-24f);
-  bool valid = mask[g] && r > p.near &&
-               fabsf(div_scalar(theta - p.cv, p.inv_half_v)) <=
-                   FRUSTUM_MARGIN &&
-               fabsf(div_scalar(phi - p.ch, p.inv_half_h)) <= FRUSTUM_MARGIN;
-
-  // the AABB of the cutoff ellipse by 12 samples (forward.cu:129-171)
-  const float cutoff =
-      sqrtf(fmax_(9.f + 2.f * logf(fmax_(op, 1e-30f)), 1e-6f));
-  float sx_max = -INFINITY, sx_min = INFINITY;
-  float sy_max = -INFINITY, sy_min = INFINITY;
-#pragma unroll 4
-  for (int k = 0; k < SAMPLES; ++k) {
-    const float sa = __ldg(sin_a + k), ca = __ldg(cos_a + k);
-    float smp[3];
-    for (int j = 0; j < 3; ++j)
-      smp[j] = cutoff * (sa * u[j] + ca * v[j]) + pc[j];
-    const bool sdeg = (smp[0] * smp[0] + smp[2] * smp[2]) < 1e-20f;
-    const float sxs = sdeg ? 0.f : smp[0], szs = sdeg ? 1.f : smp[2];
-    float sphi = atan2f(sxs, szs);
-    if (p.wrap_x) {
-      // unwrap around the centre's phi (rintf: torch.round's half-even)
-      float dphi = sphi - phi;
-      dphi = dphi - p.two_pi * rintf(div_scalar(dphi, p.inv_two_pi));
-      sphi = phi + dphi;
-    }
-    const float stheta = atan2f(sqrtf(sxs * sxs + szs * szs), -smp[1]);
-    const float sxp = div_scalar((sphi - p.hmin) * p.fW, p.inv_hrange);
-    const float syp = div_scalar((stheta - p.vmin) * p.fH, p.inv_vrange);
-    sx_max = fmax_(sx_max, sxp);
-    sx_min = fmin_(sx_min, sxp);
-    sy_max = fmax_(sy_max, syp);
-    sy_min = fmin_(sy_min, syp);
-  }
-  const float cx = div_scalar((phi - p.hmin) * p.fW, p.inv_hrange);
-  const float cy = div_scalar((theta - p.vmin) * p.fH, p.inv_vrange);
-  const float ex_hi = sx_max - cx, ex_lo = cx - sx_min;
-  const float ey_hi = sy_max - cy, ey_lo = cy - sy_min;
-  const float radius = fmax_(fmax_(ex_hi, ex_lo), fmax_(ey_hi, ey_lo));
-  valid = valid && radius >= 0.3f;
-  const float rad_i = ceilf(radius);
-
-  float rx_lo = rad_i, rx_hi = rad_i, ry_lo = rad_i, ry_hi = rad_i;
-  if (p.tight) {
-    const float rho_eps =
-        fmax_(2.f * logf(255.f * fmax_(op, 1e-30f)), 1e-6f);
-    const float ratio = sqrtf(rho_eps) / cutoff * 1.10f;
-    const float disk = sqrtf(div_scalar(rho_eps, 0.5f)) + 1.f;
-    if (radius <= 48.f) {
-      rx_lo = fmin_(rad_i, ceilf(fmax_(ratio * ex_lo, disk) + 1.f));
-      rx_hi = fmin_(rad_i, ceilf(fmax_(ratio * ex_hi, disk) + 1.f));
-      ry_lo = fmin_(rad_i, ceilf(fmax_(ratio * ey_lo, disk) + 1.f));
-      ry_hi = fmin_(rad_i, ceilf(fmax_(ratio * ey_hi, disk) + 1.f));
-    }
-  }
-
-  const int gx = p.tiles_x, gy = p.tiles_y;
-  const int ry0 = clampi((int)div_scalar(cy - ry_lo, p.inv_th), 0, gy);
-  const int ry1 =
-      clampi((int)div_scalar(((cy + ry_hi) + p.fTH) - 1.f, p.inv_th), 0, gy);
-  int rx0, rx1;
-  if (p.wrap_x) {
-    // preprocess.py wrap_col_rect (torch.remainder: fmod, then + W where
-    // the signs differ)
-    const float span = rx_lo + rx_hi;
-    float a = fmodf(cx - rx_lo, p.fW), b = fmodf(cx + rx_hi, p.fW);
-    if (a != 0.f && (a < 0.f) != (p.fW < 0.f)) a += p.fW;
-    if (b != 0.f && (b < 0.f) != (p.fW < 0.f)) b += p.fW;
-    const int col_a = clampi((int)div_scalar(a, p.inv_tw), 0, gx - 1);
-    const int col_b = clampi((int)div_scalar(b, p.inv_tw), 0, gx - 1);
-    int wt = (a + span) >= p.fW ? min(gx - col_a + col_b + 1, gx)
-                                : col_b - col_a + 1;
-    if (span >= p.fW) wt = gx;
-    rx0 = col_a;
-    rx1 = col_a + wt;
-  } else {
-    rx0 = clampi((int)div_scalar(cx - rx_lo, p.inv_tw), 0, gx);
-    rx1 = clampi((int)div_scalar(((cx + rx_hi) + p.fTW) - 1.f, p.inv_tw),
-                 0, gx);
-  }
-  const int area = (rx1 - rx0) * (ry1 - ry0);
-  valid = valid && area > 0;
-
-  xy[2 * g] = cx;
-  xy[2 * g + 1] = cy;
-  depth[g] = r;
-  radius_out[g] = valid ? rad_i : 0.f;
-  rect_min[2 * g] = rx0;
-  rect_min[2 * g + 1] = ry0;
-  rect_max[2 * g] = rx1;
-  rect_max[2 * g + 1] = ry1;
-  tiles[g] = valid ? area : 0;
-  valid_out[g] = valid;
-
-  if (p.n_sh > 0) {
-    // the colour (ops/sh.py eval_sh): ((b_0 c_0 + b_1 c_1) + ...) + 0.5
-    float dir[3], b[16];
-    view_dir(m, campos, dir);
-    sh_basis(dir, b);
-    const float* row = sh_rows + threadIdx.x * (KC + 1);
-    for (int c = 0; c < p.C; ++c) {
-      float val = b[0] * row[c];
+    // the colour first (ops/sh.py eval_sh): ((b_0 c_0 + b_1 c_1) + ...) +
+    // 0.5, each channel written as it is done, in place of SH words read
+    if (p.n_sh > 0) {
+      float dir[3], b[16];
+      view_dir(m, campos, dir);
+      sh_basis(dir, b);
+      for (int c = 0; c < p.C; ++c) {
+        float val = b[0] * row[c];
 #pragma unroll
-      for (int k = 1; k < MAX_COEFFS; ++k)
-        if (k < p.n_sh) val = val + b[k] * row[k * p.C + c];
-      val = val + 0.5f;
-      clamped[(long long)g * p.C + c] = val < 0.f;
-      color[(long long)g * p.C + c] = fmax_(val, 0.f);
+        for (int k = 1; k < MAX_COEFFS; ++k)
+          if (k < p.n_sh) val = val + b[k] * row[k * p.C + c];
+        val = val + 0.5f;
+        clamped[(long long)g * p.C + c] = val < 0.f;
+        if (payload)
+          out[10 + c] = fmax_(val, 0.f);
+        else
+          color[(long long)g * p.C + c] = fmax_(val, 0.f);
+      }
+    } else if (payload) {
+      for (int c = 0; c < p.C; ++c)
+        out[10 + c] = __ldg(colors + (long long)g * p.C + c);
     }
+
+    float M[3][3], t[3];
+    load_view(viewmat, M, t);
+    float q4[4];
+    for (int j = 0; j < 4; ++j) q4[j] = __ldg(quats + 4 * g + j);
+    const float s0 = __ldg(scales + (long long)g * p.scale_stride);
+    const float s1 = __ldg(scales + (long long)g * p.scale_stride + 1);
+    const float op = __ldg(opacity + g);
+
+    // the splat frame (preprocess.py build_transmat)
+    float qn[4], qnorm, R[3][3];
+    rotation(q4, qn, &qnorm, R);
+    const float s0m = s0 * p.scale_modifier, s1m = s1 * p.scale_modifier;
+    const float uw[3] = {R[0][0] * s0m, R[1][0] * s0m, R[2][0] * s0m};
+    const float vw[3] = {R[0][1] * s1m, R[1][1] * s1m, R[2][1] * s1m};
+    const float nw[3] = {R[0][2], R[1][2], R[2][2]};
+    float u[3], v[3], pc[3], nc[3];
+    rotate(M, uw, u);
+    rotate(M, vw, v);
+    rotate(M, m, pc);
+    for (int i = 0; i < 3; ++i) pc[i] = pc[i] + t[i];
+    rotate(M, nw, nc);
+    const float flip = dot3(nc, pc) < 0.f ? 1.f : -1.f;
+    for (int j = 0; j < 3; ++j) {
+      if (payload) {
+        out[3 * j] = u[j];
+        out[3 * j + 1] = v[j];
+        out[3 * j + 2] = pc[j];
+      } else {
+        T[9 * g + j] = u[j];
+        T[9 * g + 3 + j] = v[j];
+        T[9 * g + 6 + j] = pc[j];
+      }
+      normal[3 * g + j] = nc[j] * flip;
+    }
+    if (payload) {
+      out[9] = op;
+      for (int k = 0; k < p.S; ++k)
+        out[10 + p.C + k] = __ldg(features + (long long)g * p.S + k);
+    }
+
+    // the centre (preprocess.py _pano_angles) and the cull
+    const float x = pc[0], y = pc[1], z = pc[2];
+    const bool degen = (x * x + z * z) < 1e-20f;
+    const float xs = degen ? 0.f : x, zs = degen ? 1.f : z;
+    const float phi = atan2f(xs, zs);
+    const float theta = atan2f(sqrtf(xs * xs + zs * zs), -y);
+    const float r = sqrtf(((x * x + y * y) + z * z) + 1e-24f);
+    bool valid = mask[g] && r > p.near &&
+                 fabsf(div_scalar(theta - p.cv, p.inv_half_v)) <=
+                     FRUSTUM_MARGIN &&
+                 fabsf(div_scalar(phi - p.ch, p.inv_half_h)) <= FRUSTUM_MARGIN;
+
+    // the AABB of the cutoff ellipse by 12 samples (forward.cu:129-171)
+    const float cutoff =
+        sqrtf(fmax_(9.f + 2.f * logf(fmax_(op, 1e-30f)), 1e-6f));
+    float sx_max = -INFINITY, sx_min = INFINITY;
+    float sy_max = -INFINITY, sy_min = INFINITY;
+#pragma unroll 4
+    for (int k = 0; k < SAMPLES; ++k) {
+      const float sa = __ldg(sin_a + k), ca = __ldg(cos_a + k);
+      float smp[3];
+      for (int j = 0; j < 3; ++j)
+        smp[j] = cutoff * (sa * u[j] + ca * v[j]) + pc[j];
+      const bool sdeg = (smp[0] * smp[0] + smp[2] * smp[2]) < 1e-20f;
+      const float sxs = sdeg ? 0.f : smp[0], szs = sdeg ? 1.f : smp[2];
+      float sphi = atan2f(sxs, szs);
+      if (p.wrap_x) {
+        // unwrap around the centre's phi (rintf: torch.round's half-even)
+        float dphi = sphi - phi;
+        dphi = dphi - p.two_pi * rintf(div_scalar(dphi, p.inv_two_pi));
+        sphi = phi + dphi;
+      }
+      const float stheta = atan2f(sqrtf(sxs * sxs + szs * szs), -smp[1]);
+      const float sxp = div_scalar((sphi - p.hmin) * p.fW, p.inv_hrange);
+      const float syp = div_scalar((stheta - p.vmin) * p.fH, p.inv_vrange);
+      sx_max = fmax_(sx_max, sxp);
+      sx_min = fmin_(sx_min, sxp);
+      sy_max = fmax_(sy_max, syp);
+      sy_min = fmin_(sy_min, syp);
+    }
+    const float cx = div_scalar((phi - p.hmin) * p.fW, p.inv_hrange);
+    const float cy = div_scalar((theta - p.vmin) * p.fH, p.inv_vrange);
+    const float ex_hi = sx_max - cx, ex_lo = cx - sx_min;
+    const float ey_hi = sy_max - cy, ey_lo = cy - sy_min;
+    const float radius = fmax_(fmax_(ex_hi, ex_lo), fmax_(ey_hi, ey_lo));
+    valid = valid && radius >= 0.3f;
+    const float rad_i = ceilf(radius);
+
+    float rx_lo = rad_i, rx_hi = rad_i, ry_lo = rad_i, ry_hi = rad_i;
+    if (p.tight) {
+      const float rho_eps =
+          fmax_(2.f * logf(255.f * fmax_(op, 1e-30f)), 1e-6f);
+      const float ratio = sqrtf(rho_eps) / cutoff * 1.10f;
+      const float disk = sqrtf(div_scalar(rho_eps, 0.5f)) + 1.f;
+      if (radius <= 48.f) {
+        rx_lo = fmin_(rad_i, ceilf(fmax_(ratio * ex_lo, disk) + 1.f));
+        rx_hi = fmin_(rad_i, ceilf(fmax_(ratio * ex_hi, disk) + 1.f));
+        ry_lo = fmin_(rad_i, ceilf(fmax_(ratio * ey_lo, disk) + 1.f));
+        ry_hi = fmin_(rad_i, ceilf(fmax_(ratio * ey_hi, disk) + 1.f));
+      }
+    }
+
+    const int gx = p.tiles_x, gy = p.tiles_y;
+    const int ry0 = clampi((int)div_scalar(cy - ry_lo, p.inv_th), 0, gy);
+    const int ry1 =
+        clampi((int)div_scalar(((cy + ry_hi) + p.fTH) - 1.f, p.inv_th), 0, gy);
+    int rx0, rx1;
+    if (p.wrap_x) {
+      // preprocess.py wrap_col_rect (torch.remainder: fmod, then + W where
+      // the signs differ)
+      const float span = rx_lo + rx_hi;
+      float a = fmodf(cx - rx_lo, p.fW), b = fmodf(cx + rx_hi, p.fW);
+      if (a != 0.f && (a < 0.f) != (p.fW < 0.f)) a += p.fW;
+      if (b != 0.f && (b < 0.f) != (p.fW < 0.f)) b += p.fW;
+      const int col_a = clampi((int)div_scalar(a, p.inv_tw), 0, gx - 1);
+      const int col_b = clampi((int)div_scalar(b, p.inv_tw), 0, gx - 1);
+      int wt = (a + span) >= p.fW ? min(gx - col_a + col_b + 1, gx)
+                                  : col_b - col_a + 1;
+      if (span >= p.fW) wt = gx;
+      rx0 = col_a;
+      rx1 = col_a + wt;
+    } else {
+      rx0 = clampi((int)div_scalar(cx - rx_lo, p.inv_tw), 0, gx);
+      rx1 = clampi((int)div_scalar(((cx + rx_hi) + p.fTW) - 1.f, p.inv_tw),
+                   0, gx);
+    }
+    const int area = (rx1 - rx0) * (ry1 - ry0);
+    valid = valid && area > 0;
+
+    xy[2 * g] = cx;
+    xy[2 * g + 1] = cy;
+    depth[g] = r;
+    radius_out[g] = valid ? rad_i : 0.f;
+    rect_min[2 * g] = rx0;
+    rect_min[2 * g + 1] = ry0;
+    rect_max[2 * g] = rx1;
+    rect_max[2 * g + 1] = ry1;
+    tiles[g] = valid ? area : 0;
+    valid_out[g] = valid;
+  }
+  if (payload) {
+    // the block's payload rows, left in its shared rows, out whole
+    __syncthreads();
+    const int D = 10 + p.C + p.S;
+    block_from_shared(sh_rows, srow, payload_offset(p), first, n_rows, D,
+                      payload, D);
   }
 }
 
@@ -412,33 +510,45 @@ __global__ void __launch_bounds__(THREADS)
 preprocess_bwd_kernel(PrepParams p, const float* __restrict__ means,
                       const float* __restrict__ scales,
                       const float* __restrict__ quats,
-                      const float* __restrict__ shs,
+                      const float* __restrict__ sh_dc,
+                      const float* __restrict__ sh_rest,
                       const float* __restrict__ viewmat,
                       const float* __restrict__ campos,
                       const unsigned char* __restrict__ clamped,
                       const float* __restrict__ dT,
                       const float* __restrict__ dcolor,
                       float* __restrict__ dmeans, float* __restrict__ dscales,
-                      float* __restrict__ dquats, float* __restrict__ dshs) {
+                      float* __restrict__ dquats, float* __restrict__ d_dc,
+                      float* __restrict__ d_rest) {
   extern __shared__ float sh_rows[];
   const int first = blockIdx.x * THREADS;
   const int n_rows = min(THREADS, p.P - first);
   const int KC = p.K * p.C;
-  const bool has_sh = shs != nullptr;
+  const bool has_sh = sh_dc != nullptr;
+  // after the SH rows, the colour's cotangent rows (C + 1 floats apart):
+  // each is read K times, and where the payload's gradient holds them,
+  // one warp's would span 18 lines of the L1 at every read
+  float* dcolor_rows = sh_rows + THREADS * (KC + 1);
   if (has_sh) {
-    rows_to_shared(shs, first, n_rows, KC, sh_rows);
+    sh_to_shared(p, sh_dc, sh_rest, first, n_rows, sh_rows, KC + 1);
+    block_to_shared(dcolor, p.dcolor_row, first, n_rows, p.C, dcolor_rows,
+                    p.C + 1, 0);
     __syncthreads();
   }
   const int g = first + threadIdx.x;
   if (g < p.P) {
     float M[3][3], t[3];
     load_view(viewmat, M, t);
+    // T's cotangent where the caller leaves it: element (i, j) at
+    // i * dT_si + j * dT_sj of its row ([P, 3, 3] rows, or the columns of
+    // the payload's gradient rows)
+    const float* dTg = dT + (long long)g * p.dT_row;
     float m[3], q4[4], dTu[3], dTv[3], dTp[3];
     for (int j = 0; j < 3; ++j) {
       m[j] = __ldg(means + 3 * g + j);
-      dTu[j] = __ldg(dT + 9 * g + j);
-      dTv[j] = __ldg(dT + 9 * g + 3 + j);
-      dTp[j] = __ldg(dT + 9 * g + 6 + j);
+      dTu[j] = __ldg(dTg + j * p.dT_sj);
+      dTv[j] = __ldg(dTg + p.dT_si + j * p.dT_sj);
+      dTp[j] = __ldg(dTg + 2 * p.dT_si + j * p.dT_sj);
     }
     for (int j = 0; j < 4; ++j) q4[j] = __ldg(quats + 4 * g + j);
     const float s0m = __ldg(scales + (long long)g * p.scale_stride) *
@@ -487,14 +597,14 @@ preprocess_bwd_kernel(PrepParams p, const float* __restrict__ means,
       sh_basis(dir, b);
       sh_jacobian(dir, J);
       float* row = sh_rows + threadIdx.x * (KC + 1);
+      const float* dcol = dcolor_rows + threadIdx.x * (p.C + 1);
       float ddir[3] = {0.f, 0.f, 0.f};
 #pragma unroll
       for (int k = 0; k < MAX_COEFFS; ++k) {
         if (k >= p.K) break;
         float gk = 0.f;
         for (int c = 0; c < p.C; ++c) {
-          const long long i = (long long)g * p.C + c;
-          const float dvc = clamped[i] ? 0.f : __ldg(dcolor + i);
+          const float dvc = clamped[(long long)g * p.C + c] ? 0.f : dcol[c];
           const float sv = row[k * p.C + c];
           gk = gk + sv * dvc;
           // d SH over the coefficient it read (same shared word)
@@ -512,15 +622,19 @@ preprocess_bwd_kernel(PrepParams p, const float* __restrict__ means,
   }
   if (has_sh) {
     __syncthreads();
-    rows_from_shared(sh_rows, first, n_rows, KC, dshs);
+    block_from_shared(sh_rows, KC + 1, 0, first, n_rows, p.C, d_dc,
+                      p.ddc_stride);
+    block_from_shared(sh_rows, KC + 1, p.C, first, n_rows, KC - p.C, d_rest,
+                      p.drest_stride);
   }
 }
 
 int blocks_of(int P) { return (P + THREADS - 1) / THREADS; }
 
-cudaError_t shared_bytes(const void* kernel, const PrepParams& p,
+// dynamic shared memory of `floats_per_row` floats for each thread
+cudaError_t shared_bytes(const void* kernel, int floats_per_row,
                          size_t* bytes) {
-  *bytes = p.K > 0 ? (size_t)THREADS * (p.K * p.C + 1) * sizeof(float) : 0;
+  *bytes = (size_t)THREADS * floats_per_row * sizeof(float);
   if (*bytes > 48 * 1024)
     return cudaFuncSetAttribute(kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -532,68 +646,98 @@ bool params_ok(const PrepParams& p) {
   return p.P > 0 && p.K >= 0 && p.K <= MAX_COEFFS && p.C >= 0 &&
          p.C <= MAX_CHANNELS && p.n_sh >= 0 && p.n_sh <= p.K &&
          p.scale_cols >= 2 && p.scale_stride >= 2 && p.tiles_x > 0 &&
-         p.tiles_y > 0;
+         p.tiles_y > 0 && p.S >= 0;
+}
+
+// the SH blocks: a DC row of C and a rest row of (K - 1) x C, each row's
+// coefficients contiguous, rows `dc` and `rest` floats apart
+bool sh_ok(const PrepParams& p, const float* dc, const float* rest, int dc_s,
+           int rest_s) {
+  return p.K >= 1 && dc && dc_s >= p.C &&
+         (p.K == 1 || (rest && rest_s >= (p.K - 1) * p.C));
 }
 
 }  // namespace
 
 // The forward on `stream`; returns cudaGetLastError() as an int (0 =
-// cudaSuccess). All pointers are device pointers to contiguous rows:
-// means [P, 3], scales [P, >= 2] with rows scale_stride floats apart,
-// quats [P, 4], opacity [P], mask [P] bool, shs [P, K, C] (null with the
-// colours given, n_sh = 0), viewmat [4, 4], campos [3], sin_a and cos_a
-// [12]; outputs T [P, 3, 3], xy [P, 2], depth [P], normal [P, 3], color
-// [P, C] (null without SH), radius [P], rect_min and rect_max [P, 2]
-// int32, tiles [P] int32, valid [P] bool, clamped [P, C] bool (null
-// without SH).
+// cudaSuccess). All pointers are device pointers: means [P, 3], scales
+// [P, >= 2] with rows scale_stride floats apart, quats [P, 4], opacity
+// [P], mask [P] bool, the SH as two blocks, sh_dc [P, 1, C] and sh_rest
+// [P, K - 1, C] with rows dc_stride and rest_stride floats apart (both
+// null with the colours given, n_sh = 0), viewmat [4, 4], campos [3],
+// sin_a and cos_a [12]; outputs xy [P, 2], depth [P], normal [P, 3],
+// radius [P], rect_min and rect_max [P, 2] int32, tiles [P] int32, valid
+// [P] bool, clamped [P, C] bool (null without SH), and either T [P, 3, 3]
+// and color [P, C] (null without SH), or with `payload` non-null (T and
+// color null) the compositor's [P, 10 + C + S] rows: T's columns as
+// component triples, opacity, the colour (or `colors` [P, C] as given)
+// and `features` [P, S].
 extern "C" int gslidar_preprocess_fwd(
     int device, const PrepParams* params, const float* means,
     const float* scales, const float* quats, const float* opacity,
-    const unsigned char* mask, const float* shs, const float* viewmat,
+    const unsigned char* mask, const float* sh_dc, const float* sh_rest,
+    const float* features, const float* colors, const float* viewmat,
     const float* campos, const float* sin_a, const float* cos_a, float* T,
-    float* xy, float* depth, float* normal, float* color, float* radius,
-    int* rect_min, int* rect_max, int* tiles, unsigned char* valid,
-    unsigned char* clamped, void* stream) {
+    float* xy, float* depth, float* normal, float* color, float* payload,
+    float* radius, int* rect_min, int* rect_max, int* tiles,
+    unsigned char* valid, unsigned char* clamped, void* stream) {
   PrepParams p = *params;
-  if (!params_ok(p) || (p.n_sh > 0 && (!shs || !color || !clamped)))
+  if (!sh_dc) p.n_sh = 0, p.K = 0;
+  if (!params_ok(p) ||
+      (p.n_sh > 0 &&
+       (!sh_ok(p, sh_dc, sh_rest, p.dc_stride, p.rest_stride) ||
+        !clamped)) ||
+      (payload ? (p.C < 1 || T || color || (p.S > 0 && !features) ||
+                  (p.n_sh == 0 && !colors))
+               : (!T || (p.n_sh > 0 && !color))))
     return (int)cudaErrorInvalidValue;
-  if (!shs) p.n_sh = 0, p.K = 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   size_t smem;
-  err = shared_bytes((const void*)preprocess_fwd_kernel, p, &smem);
+  err = shared_bytes((const void*)preprocess_fwd_kernel,
+                     fwd_shared_row(p, payload != nullptr), &smem);
   if (err != cudaSuccess) return (int)err;
   preprocess_fwd_kernel<<<blocks_of(p.P), THREADS, smem,
                           (cudaStream_t)stream>>>(
-      p, means, scales, quats, opacity, mask, shs, viewmat, campos, sin_a,
-      cos_a, T, xy, depth, normal, color, radius, rect_min, rect_max, tiles,
-      valid, clamped);
+      p, means, scales, quats, opacity, mask, sh_dc, sh_rest, features,
+      colors, viewmat, campos, sin_a, cos_a, T, xy, depth, normal, color,
+      payload, radius, rect_min, rect_max, tiles, valid, clamped);
   return (int)cudaGetLastError();
 }
 
 // The backward on `stream`; returns cudaGetLastError() as an int. Inputs
-// as the forward's, with clamped [P, C] (the forward's), dT [P, 3, 3] and
-// dcolor [P, C] (both null-able with shs null); outputs dmeans [P, 3],
-// dscales [P, scale_cols] (columns 2.. zero), dquats [P, 4] and dshs
-// [P, K, C] (bands above n_sh zero; null without SH).
+// as the forward's, with clamped [P, C] (the forward's), the cotangent of
+// T, element (g, i, j) at g * dT_row + i * dT_si + j * dT_sj, and that of
+// the colour, (g, c) at g * dcolor_row + c (null with the SH null):
+// [P, 3, 3] and [P, C] tensors, or views of the payload's gradient rows,
+// read where they lie; outputs dmeans [P, 3], dscales
+// [P, scale_cols] (columns 2.. zero), dquats [P, 4] and the SH's as two
+// blocks, d_dc [P, 1, C] and d_rest [P, K - 1, C] with rows ddc_stride
+// and drest_stride floats apart (bands above n_sh zero; null without
+// SH).
 extern "C" int gslidar_preprocess_bwd(
     int device, const PrepParams* params, const float* means,
-    const float* scales, const float* quats, const float* shs,
-    const float* viewmat, const float* campos, const unsigned char* clamped,
-    const float* dT, const float* dcolor, float* dmeans, float* dscales,
-    float* dquats, float* dshs, void* stream) {
+    const float* scales, const float* quats, const float* sh_dc,
+    const float* sh_rest, const float* viewmat, const float* campos,
+    const unsigned char* clamped, const float* dT, const float* dcolor,
+    float* dmeans, float* dscales, float* dquats, float* d_dc,
+    float* d_rest, void* stream) {
   PrepParams p = *params;
-  if (!params_ok(p) || (shs && (!clamped || !dcolor || !dshs)))
+  if (!sh_dc) p.n_sh = 0, p.K = 0;
+  if (!params_ok(p) || !dT ||
+      (sh_dc && (!sh_ok(p, sh_dc, sh_rest, p.dc_stride, p.rest_stride) ||
+                 !sh_ok(p, d_dc, d_rest, p.ddc_stride, p.drest_stride) ||
+                 !clamped || !dcolor)))
     return (int)cudaErrorInvalidValue;
-  if (!shs) p.n_sh = 0, p.K = 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   size_t smem;
-  err = shared_bytes((const void*)preprocess_bwd_kernel, p, &smem);
+  err = shared_bytes((const void*)preprocess_bwd_kernel,
+                     p.K > 0 ? p.K * p.C + 1 + p.C + 1 : 0, &smem);
   if (err != cudaSuccess) return (int)err;
   preprocess_bwd_kernel<<<blocks_of(p.P), THREADS, smem,
                           (cudaStream_t)stream>>>(
-      p, means, scales, quats, shs, viewmat, campos, clamped, dT, dcolor,
-      dmeans, dscales, dquats, dshs);
+      p, means, scales, quats, sh_dc, sh_rest, viewmat, campos, clamped, dT,
+      dcolor, dmeans, dscales, dquats, d_dc, d_rest);
   return (int)cudaGetLastError();
 }

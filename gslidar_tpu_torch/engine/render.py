@@ -64,7 +64,7 @@ def render(params: G.Params, alive: torch.Tensor, viewmat, campos, timestamp,
 
         scales = G.get_scaling(params)
         rotations = params["rotation"]
-        shs = G.get_features(params)
+        shs = (params["f_dc"], params["f_rest"])     # read where they lie
 
         t_scale = torch.clamp_max(G.get_scaling_t(params), 2.0)
         v = G.get_inst_velocity(params, cfg)
@@ -73,7 +73,7 @@ def render(params: G.Params, alive: torch.Tensor, viewmat, campos, timestamp,
         mask = alive & (opacity > 1.0 / 255.0)
         if dynamic:
             mask = mask & (marginal > 0.05)
-    backward_boundary((means3D, scales, rotations, opacity, shs, features),
+    backward_boundary((means3D, scales, rotations, opacity, *shs, features),
                       "bwd.activations")
 
     out: RasterOut = rasterize(

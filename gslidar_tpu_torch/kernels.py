@@ -98,11 +98,12 @@ SIGNATURES = {
     ],
     "gslidar_preprocess_fwd": [
         _I, _P,                          # device, params (host PrepParams)
-        _P, _P, _P, _P, _P, _P,          # means, scales, quats, opacity,
-                                         # mask, shs
+        _P, _P, _P, _P, _P,              # means, scales, quats, opacity,
+                                         # mask
+        _P, _P, _P, _P,                  # sh_dc, sh_rest, features, colors
         _P, _P, _P, _P,                  # viewmat, campos, sin_a, cos_a
-        _P, _P, _P, _P, _P, _P,          # T, xy, depth, normal, color,
-                                         # radius
+        _P, _P, _P, _P, _P, _P, _P,      # T, xy, depth, normal, color,
+                                         # payload, radius
         _P, _P, _P, _P, _P,              # rect_min, rect_max, tiles, valid,
                                          # clamped
         _P,                              # stream
@@ -129,10 +130,12 @@ SIGNATURES = {
     ],
     "gslidar_preprocess_bwd": [
         _I, _P,                          # device, params (host PrepParams)
-        _P, _P, _P, _P, _P, _P,          # means, scales, quats, shs,
-                                         # viewmat, campos
+        _P, _P, _P, _P, _P,              # means, scales, quats, sh_dc,
+                                         # sh_rest
+        _P, _P,                          # viewmat, campos
         _P, _P, _P,                      # clamped, dT, dcolor
-        _P, _P, _P, _P,                  # dmeans, dscales, dquats, dshs
+        _P, _P, _P, _P, _P,              # dmeans, dscales, dquats, d_dc,
+                                         # d_rest
         _P,                              # stream
     ],
 }

@@ -32,7 +32,7 @@ from gslidar_tpu_torch.raster.binning import bin_gaussians
 from gslidar_tpu_torch.raster.composite_fwd import (PAYLOAD_BASE,
                                                     composite_forward,
                                                     make_params,
-                                                    pack_payload)
+                                                    payload_rows)
 from gslidar_tpu_torch.raster.preprocess import preprocess
 from gslidar_tpu_torch.raster.rasterize import rasterize
 from gslidar_tpu_torch.raster.settings import RasterSettings
@@ -183,8 +183,9 @@ def route_stage(d, n, means3D, scales, rotations, opacity, shs, features,
     gx = settings.tiles_x
     gxl = gx // n
     prep = preprocess(means3D, scales, rotations, opacity, shs, mask,
-                      viewmat, campos, sh_degree, scale_factor, settings)
-    payload = pack_payload(prep, opacity, features)
+                      viewmat, campos, sh_degree, scale_factor, settings,
+                      features=features)
+    payload = payload_rows(prep, opacity, features)
     live = prep.tiles_touched > 0
     lo, hi = prep.rect_min[:, 0], prep.rect_max[:, 0]
     y0, y1 = prep.rect_min[:, 1], prep.rect_max[:, 1]

@@ -101,9 +101,20 @@ def new_checkpoints(tile_starts: torch.Tensor, n_rows: int,
 @span("pack_payload")
 def pack_payload(prep, opacity, features):
     """[P, 10 + C + S] per-gaussian payload rows (the columns of T are
-    component triples, forward.cu:385-387)."""
+    component triples, forward.cu:385-387), packed here (counter
+    ``payload.packed``). The preprocess kernel writes the same rows itself
+    when it is given the features (``payload_rows``)."""
+    count("payload.packed")
     Tcols = prep.T.transpose(1, 2).reshape(-1, 9)
     return torch.cat([Tcols, opacity[:, None], prep.color, features], dim=1)
+
+
+def payload_rows(prep, opacity, features):
+    """The payload rows of ``prep`` (``preprocess``'s): those the kernel
+    wrote, else ``pack_payload``'s."""
+    if prep.payload is not None:
+        return prep.payload
+    return pack_payload(prep, opacity, features)
 
 
 def make_params(scale_factor, settings: RasterSettings, angle_bounds=None):

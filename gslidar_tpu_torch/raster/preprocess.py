@@ -9,6 +9,15 @@ and ``preprocess_backward_reference`` (the gradient written out). Only
 ``T`` and ``color`` carry a gradient. Culled gaussians carry valid=False
 and zero tiles.
 
+The SH coefficients come as one [P, K, C] tensor or as the model's two
+blocks, (DC [P, 1, C], rest [P, K - 1, C]): the kernels read both where
+they lie, and the backward gives each its own gradient. Given the
+features, the forward kernel also writes the forward compositor's
+payload rows (``composite_fwd.pack_payload``'s, bit for bit), ``T`` and
+``color`` are views of them, and the backward reads T's and the colour's
+cotangents in place in the rows' gradient; the CPU, and a caller that
+adds a tap to ``T``, pack the rows eagerly instead.
+
 Frame convention: ``T`` is [P, 3, 3] with ROWS (u_cam, v_cam, p_cam) —
 the two scaled tangent axes of the splat and its center, in camera
 coordinates. The compositing kernel's Tu/Tv/Tw vectors are the COLUMNS of
@@ -26,6 +35,7 @@ import torch
 
 from gslidar_tpu_torch.kernels import launch
 from gslidar_tpu_torch.ops.sh import active_coeffs, eval_sh, eval_sh_backward
+from gslidar_tpu_torch.raster.composite_fwd import PAYLOAD_BASE
 from gslidar_tpu_torch.raster.settings import (FILTER_INV_SQUARE,
                                                FRUSTUM_MARGIN, NEAR_N,
                                                RasterSettings)
@@ -193,6 +203,32 @@ class PreprocessOut(NamedTuple):
     rect_max: torch.Tensor      # [P, 2] int32 exclusive
     tiles_touched: torch.Tensor  # [P] int32
     valid: torch.Tensor         # [P] bool
+    # [P, 10 + C + S] compositor rows the kernel wrote (T and color are
+    # views of them), or None: the caller packs them (pack_payload)
+    payload: torch.Tensor | None = None
+
+
+def sh_rows(shs):
+    """[P, K, C] SH coefficients of ``shs``, given as such a tensor or as
+    its (DC [P, 1, C], rest [P, K - 1, C]) blocks (concatenated then);
+    None stays None."""
+    return torch.cat(shs, 1) if isinstance(shs, tuple) else shs
+
+
+def _sh_blocks(shs):
+    """(DC [P, 1, C], rest [P, K - 1, C]) of ``shs``: the pair as given,
+    or two views of one [P, K, C] tensor; (None, None) for None."""
+    if shs is None:
+        return None, None
+    return shs if isinstance(shs, tuple) else (shs[:, :1], shs[:, 1:])
+
+
+def payload_views(rows: torch.Tensor, C: int):
+    """T [P, 3, 3] (rows u_cam, v_cam, p_cam) and the colour [P, C] as
+    views of [P, 10 + C + S] payload rows, whose first 9 columns are T's
+    columns (``composite_fwd.pack_payload``)."""
+    return rows[:, :9].unflatten(1, (3, 3)).transpose(1, 2), \
+        rows[:, PAYLOAD_BASE:PAYLOAD_BASE + C]
 
 
 _AABB_SAMPLES = 12
@@ -332,7 +368,7 @@ def _preprocess_plain(means3D, scales, quats, opacity, shs, mask, viewmat,
     if colors_precomp is not None:
         color = colors_precomp
     else:
-        color, clamped = eval_sh(sh_degree, shs,
+        color, clamped = eval_sh(sh_degree, sh_rows(shs),
                                  _view_dirs(means3D, campos)[0])
 
     return PreprocessOut(
@@ -375,14 +411,16 @@ def preprocess_reference(means3D, scales, quats, opacity, shs, mask, viewmat,
                          campos, sh_degree, scale_factor,
                          settings: RasterSettings, scale_modifier=1.0,
                          colors_precomp=None, angle_bounds=None,
-                         cull_bounds=None) -> PreprocessOut:
+                         cull_bounds=None, features=None) -> PreprocessOut:
     """The plain version of the preprocess pass (reference
     forward.cu:174-287), in any float dtype and differentiable by
     autograd (the dense oracle differentiates its xy, depth and normal).
 
-    opacity: [P] activated opacity; shs: [P, K, C] (or None with
-    colors_precomp [P, C]); mask: [P] bool prefilter. angle_bounds
-    overrides the pixel-mapping window, cull_bounds the cull window.
+    opacity: [P] activated opacity; shs: [P, K, C] or its (DC, rest)
+    blocks (or None with colors_precomp [P, C]); mask: [P] bool
+    prefilter. angle_bounds overrides the pixel-mapping window,
+    cull_bounds the cull window. ``features`` is taken as ``preprocess``
+    takes it and left to the caller: ``payload`` is None.
     """
     return _preprocess_plain(means3D, scales, quats, opacity, shs, mask,
                              viewmat, campos, sh_degree, scale_factor,
@@ -397,7 +435,8 @@ def preprocess_backward_reference(means3D, scales, quats, shs, viewmat,
     cotangents of ``T`` [P, 3, 3] and ``color`` [P, C] (and the forward's
     SH clamp mask ``clamped`` [P, C]) to the gradients of means3D [P, 3],
     scales (its shape; the first two columns, the rest 0), quats [P, 4]
-    and shs [P, K, C] (None when ``shs`` is None: the colors were given).
+    and shs, [P, K, C] or its two blocks as ``shs`` came (None when
+    ``shs`` is None: the colors were given).
     The other outputs are piecewise constant (the rects, the flip of the
     normal) or carry no gradient in the port (xy, depth, normal)."""
     M = viewmat[:3, :3]
@@ -428,12 +467,16 @@ def preprocess_backward_reference(means3D, scales, quats, shs, viewmat,
     dshs = None
     if shs is not None:
         dirs, dn = _view_dirs(means3D, campos)
-        dshs, ddirs = eval_sh_backward(sh_degree, shs, dirs, clamped, dcolor)
+        dshs, ddirs = eval_sh_backward(sh_degree, sh_rows(shs), dirs,
+                                       clamped, dcolor)
         dmeans = dmeans + (ddirs - dirs * _dot(dirs, ddirs)[:, None]) / dn
+        if isinstance(shs, tuple):
+            dshs = _sh_blocks(dshs)
     return dmeans, dscales, dquats, dshs
 
 
 MAX_CHANNELS = 16      # C the kernels take (csrc/preprocess.cu)
+MAX_COEFFS = 16        # and K
 
 
 class _KernelParams(ctypes.Structure):
@@ -444,7 +487,8 @@ class _KernelParams(ctypes.Structure):
     _fields_ = ([(f, ctypes.c_int) for f in (
         "P", "K", "C", "n_sh", "width", "height", "tile_w", "tile_h",
         "tiles_x", "tiles_y", "wrap_x", "tight", "scale_stride",
-        "scale_cols")]
+        "scale_cols", "S", "dc_stride", "rest_stride", "ddc_stride",
+        "drest_stride", "dT_row", "dT_si", "dT_sj", "dcolor_row")]
         + [(f, ctypes.c_float) for f in (
             "scale_modifier", "hmin", "vmin", "fW", "fH", "hrange",
             "vrange", "inv_hrange", "inv_vrange", "cv", "ch", "half_v",
@@ -466,7 +510,10 @@ def _reciprocal(b, device) -> float:
     return _RECIPROCALS[key]
 
 
-def _kernel_params(P, scales, shs, C, opts: _Options) -> _KernelParams:
+def _kernel_params(P, scales, sh, C, opts: _Options) -> _KernelParams:
+    """The parameters both kernels take; ``sh`` the checked SH blocks
+    (``_kernel_inputs``) or None. The caller sets the fields of its own
+    outputs and cotangents."""
     s = opts.settings
     (vmin, vmax, hmin, hmax), (cvmin, cvmax, chmin, chmax) = _windows(
         s, opts.angle_bounds, opts.cull_bounds)
@@ -477,10 +524,12 @@ def _kernel_params(P, scales, shs, C, opts: _Options) -> _KernelParams:
     cvmin, cvmax, chmin, chmax = (float(v) for v in (cvmin, cvmax, chmin,
                                                      chmax))
     half_v, half_h = 0.5 * (cvmax - cvmin), 0.5 * (chmax - chmin)
-    K = 0 if shs is None else shs.shape[1]
+    K = 0 if sh is None else 1 + sh[1].shape[1]
     return _KernelParams(
-        P=P, K=K, C=C, n_sh=0 if shs is None else active_coeffs(
+        P=P, K=K, C=C, n_sh=0 if sh is None else active_coeffs(
             opts.sh_degree, K),
+        dc_stride=0 if sh is None else _row_stride(sh[0]),
+        rest_stride=0 if sh is None else _row_stride(sh[1]),
         width=s.width, height=s.height, tile_w=s.tile_w, tile_h=s.tile_h,
         tiles_x=s.tiles_x, tiles_y=s.tiles_y, wrap_x=int(s.wrap_x),
         tight=int(s.tight_rects), scale_stride=scales.stride(0),
@@ -499,20 +548,43 @@ def _kernel_params(P, scales, shs, C, opts: _Options) -> _KernelParams:
 def _float_rows(name, x, P, cols):
     """x as a contiguous float32 [P, cols] tensor (raises otherwise)."""
     if x.dtype != torch.float32 or x.shape[0] != P or \
-            x[0].numel() != cols:
+            math.prod(x.shape[1:]) != cols:
         raise TypeError(f"{name} must be float32 with {P} rows of {cols}, "
                         f"got {x.dtype} {tuple(x.shape)}")
     return x.contiguous()
 
 
+def _row_stride(x) -> int:
+    """Floats between the rows of x (checked by ``_block``): its first
+    stride, or a row's length where it has one row."""
+    return x.stride(0) if x.shape[0] > 1 else math.prod(x.shape[1:])
+
+
+def _block(name, x, P, C):
+    """x as float32 [P, k, C] whose rows each hold k x C contiguous
+    floats, kept where it lies when they do (the kernels read a row
+    stride), else copied."""
+    if x.dim() != 3 or x.shape[0] != P or x.shape[2] != C or \
+            x.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32 [{P}, k, {C}], got "
+                        f"{x.dtype} {tuple(x.shape)}")
+    rows_whole = x.stride(2) == 1 and (x.shape[1] <= 1 or
+                                       x.stride(1) == C)
+    if not rows_whole or (P > 1 and x.stride(0) < math.prod(x.shape[1:])):
+        x = x.contiguous()
+    return x
+
+
 def _kernel_inputs(means3D, scales, quats, shs, viewmat, campos):
-    """The inputs both kernels read, checked: (means, scales, quats, shs,
-    viewmat, campos). ``scales`` keeps its row stride when its columns
-    are contiguous."""
+    """The inputs both kernels read, checked: (means, scales, quats, the
+    SH blocks (DC, rest) or None, viewmat, campos). ``scales`` keeps its
+    row stride when its columns are contiguous, each SH block its own."""
     P = means3D.shape[0]
     dev = means3D.device
-    for name, x in (("scales", scales), ("quats", quats), ("shs", shs),
-                    ("viewmat", viewmat), ("campos", campos)):
+    dc, rest = _sh_blocks(shs)
+    for name, x in (("scales", scales), ("quats", quats), ("sh DC", dc),
+                    ("sh rest", rest), ("viewmat", viewmat),
+                    ("campos", campos)):
         if x is not None and x.device != dev:
             raise ValueError(f"{name} on {x.device}, means3D on {dev}")
     if scales.dim() != 2 or scales.shape[1] < 2 or \
@@ -521,94 +593,132 @@ def _kernel_inputs(means3D, scales, quats, shs, viewmat, campos):
                         f"{scales.dtype} {tuple(scales.shape)}")
     if scales.stride(1) != 1:
         scales = scales.contiguous()
-    if shs is not None and (shs.dim() != 3 or shs.shape[1] > 16):
-        raise TypeError(f"shs must be [P, K <= 16, C], got "
-                        f"{tuple(shs.shape)}")
+    sh = None
+    if dc is not None:
+        if dc.dim() != 3 or dc.shape[1] != 1 or \
+                1 + rest.shape[1] > MAX_COEFFS:
+            raise TypeError(f"the SH must be [P, K <= {MAX_COEFFS}, C], got "
+                            f"blocks {tuple(dc.shape)} and "
+                            f"{tuple(rest.shape)}")
+        C = dc.shape[2]
+        sh = (_block("sh DC", dc, P, C), _block("sh rest", rest, P, C))
     return (_float_rows("means3D", means3D, P, 3), scales,
-            _float_rows("quats", quats, P, 4),
-            None if shs is None else _float_rows(
-                "shs", shs, P, shs.shape[1] * shs.shape[2]),
+            _float_rows("quats", quats, P, 4), sh,
             _float_rows("viewmat", viewmat, 4, 4),
             _float_rows("campos", campos[None], 1, 3))
 
 
 def _ptr(x):
-    return None if x is None else x.data_ptr()
+    return None if x is None or x.numel() == 0 else x.data_ptr()
 
 
 def _preprocess_kernel(means3D, scales, quats, opacity, shs, colors_precomp,
-                       mask, viewmat, campos, opts: _Options):
+                       features, mask, viewmat, campos, opts: _Options):
     """The forward kernel: (PreprocessOut, the SH clamp mask [P, C] or
-    None)."""
+    None). ``shs`` is [P, K, C], its (DC, rest) blocks, or None with
+    ``colors_precomp``. Given ``features`` [P, S], the kernel writes the
+    payload rows and ``T`` and ``color`` are views of them."""
     P = means3D.shape[0]
     dev = means3D.device
-    means3D, scales, quats, shs, viewmat, campos = _kernel_inputs(
+    means3D, scales, quats, sh, viewmat, campos = _kernel_inputs(
         means3D, scales, quats, shs, viewmat, campos)
     opacity = _float_rows("opacity", opacity, P, 1)
     if mask.dtype != torch.bool or mask.shape != (P,) or mask.device != dev:
         raise TypeError(f"mask must be bool [{P}] on {dev}")
     mask = mask.contiguous()
-    if colors_precomp is None and shs is None:
+    if colors_precomp is None and sh is None:
         raise ValueError("preprocess needs shs or colors_precomp")
-    C = colors_precomp.shape[1] if shs is None else shs.shape[2]
+    C = colors_precomp.shape[1] if sh is None else sh[0].shape[2]
     if C > MAX_CHANNELS:
         raise ValueError(f"{C} color channels, the kernel takes at most "
                          f"{MAX_CHANNELS}")
-    params = _kernel_params(P, scales, shs, C, opts)
+    params = _kernel_params(P, scales, sh, C, opts)
     sa, ca = _sample_angles(dev)
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
+    payload = colors = None
+    if features is not None:
+        features = _float_rows("features", features, P, features.shape[1])
+        params.S = features.shape[1]
+        payload = torch.empty(P, PAYLOAD_BASE + C + params.S, **f32)
+        T, color = payload_views(payload, C)
+        if sh is None:
+            colors = _float_rows("colors_precomp", colors_precomp, P, C)
+    else:
+        T = torch.empty(P, 3, 3, **f32)
+        color = (colors_precomp if sh is None
+                 else torch.empty(P, C, **f32))
     out = PreprocessOut(
-        T=torch.empty(P, 3, 3, **f32), xy=torch.empty(P, 2, **f32),
-        depth=torch.empty(P, **f32), normal=torch.empty(P, 3, **f32),
-        color=(colors_precomp if shs is None
-               else torch.empty(P, C, **f32)),
+        T=T, xy=torch.empty(P, 2, **f32), depth=torch.empty(P, **f32),
+        normal=torch.empty(P, 3, **f32), color=color,
         radius=torch.empty(P, **f32), rect_min=torch.empty(P, 2, **i32),
         rect_max=torch.empty(P, 2, **i32), tiles_touched=torch.empty(P, **i32),
-        valid=torch.empty(P, dtype=torch.bool, device=dev))
-    clamped = None if shs is None else torch.empty(P, C, dtype=torch.bool,
-                                                   device=dev)
+        valid=torch.empty(P, dtype=torch.bool, device=dev), payload=payload)
+    clamped = None if sh is None else torch.empty(P, C, dtype=torch.bool,
+                                                  device=dev)
     if P:
+        separate = payload is None
         launch("gslidar_preprocess_fwd", dev, ctypes.byref(params),
                means3D.data_ptr(), scales.data_ptr(), quats.data_ptr(),
-               opacity.data_ptr(), mask.data_ptr(), _ptr(shs),
-               viewmat.data_ptr(), campos.data_ptr(), sa.data_ptr(),
-               ca.data_ptr(), *(x.data_ptr() for x in out[:4]),
-               None if shs is None else out.color.data_ptr(),
-               *(x.data_ptr() for x in out[5:]), _ptr(clamped))
+               opacity.data_ptr(), mask.data_ptr(),
+               *(None, None) if sh is None else map(_ptr, sh),
+               _ptr(features), _ptr(colors), viewmat.data_ptr(),
+               campos.data_ptr(), sa.data_ptr(), ca.data_ptr(),
+               T.data_ptr() if separate else None, out.xy.data_ptr(),
+               out.depth.data_ptr(), out.normal.data_ptr(),
+               color.data_ptr() if separate and sh is not None else None,
+               _ptr(payload), *(x.data_ptr() for x in out[5:10]),
+               _ptr(clamped))
         count("launches.preprocess_fwd")
     return out, clamped
 
 
 def _preprocess_backward_kernel(means3D, scales, quats, shs, viewmat, campos,
                                 clamped, dT, dcolor, opts: _Options):
-    """The backward kernel: (d means3D, d scales, d quats, d shs or
-    None), as ``preprocess_backward_reference``."""
+    """The backward kernel: (d means3D, d scales, d quats, d SH or None),
+    as ``preprocess_backward_reference``, the d SH in the form ``shs``
+    came in: [P, K, C] or its two blocks. The cotangents ``dT`` [P, 3, 3]
+    and ``dcolor`` [P, C] are read by their strides, where they lie (the
+    colour's with its channels contiguous, else copied)."""
     P = means3D.shape[0]
     dev = means3D.device
     shape_s = scales.shape
-    means3D, scales, quats, shs, viewmat, campos = _kernel_inputs(
+    means3D, scales, quats, sh, viewmat, campos = _kernel_inputs(
         means3D, scales, quats, shs, viewmat, campos)
-    dT = _float_rows("dT", dT, P, 9)
-    C = 0 if shs is None else shs.shape[2]
-    if shs is not None:
-        dcolor = _float_rows("dcolor", dcolor, P, C)
-    params = _kernel_params(P, scales, shs, C, opts)
+    if dT.shape != (P, 3, 3) or dT.dtype != torch.float32:
+        raise TypeError(f"dT must be float32 [{P}, 3, 3], got {dT.dtype} "
+                        f"{tuple(dT.shape)}")
+    C = 0 if sh is None else sh[0].shape[2]
+    params = _kernel_params(P, scales, sh, C, opts)
+    params.dT_row, params.dT_si, params.dT_sj = dT.stride()
     f32 = dict(dtype=torch.float32, device=dev)
     dmeans = torch.empty(P, 3, **f32)
     dscales = torch.empty(shape_s, **f32)
     dquats = torch.empty(P, 4, **f32)
-    dshs = None if shs is None else torch.empty_like(shs)
+    dsh = dblocks = None
+    if sh is not None:
+        if dcolor.shape != (P, C) or dcolor.dtype != torch.float32:
+            raise TypeError(f"dcolor must be float32 [{P}, {C}], got "
+                            f"{dcolor.dtype} {tuple(dcolor.shape)}")
+        if dcolor.stride(1) != 1:
+            dcolor = dcolor.contiguous()
+        params.dcolor_row = dcolor.stride(0)
+        if isinstance(shs, tuple):
+            dsh = dblocks = tuple(torch.empty(b.shape, **f32) for b in sh)
+        else:
+            dsh = torch.empty(P, 1 + sh[1].shape[1], C, **f32)
+            dblocks = _sh_blocks(dsh)
+        params.ddc_stride, params.drest_stride = map(_row_stride, dblocks)
     if P:
         launch("gslidar_preprocess_bwd", dev, ctypes.byref(params),
                means3D.data_ptr(), scales.data_ptr(), quats.data_ptr(),
-               _ptr(shs), viewmat.data_ptr(), campos.data_ptr(),
-               _ptr(clamped), dT.data_ptr(),
-               None if shs is None else dcolor.data_ptr(),
+               *(None, None) if sh is None else map(_ptr, sh),
+               viewmat.data_ptr(), campos.data_ptr(), _ptr(clamped),
+               dT.data_ptr(), None if sh is None else dcolor.data_ptr(),
                dmeans.data_ptr(), dscales.data_ptr(), dquats.data_ptr(),
-               _ptr(dshs))
+               *(None, None) if sh is None else map(_ptr, dblocks))
         count("launches.preprocess_bwd")
-    return dmeans, dscales, dquats, dshs
+    return dmeans, dscales, dquats, dsh
 
 
 class _Options(NamedTuple):
@@ -621,50 +731,80 @@ class _Options(NamedTuple):
     cull_bounds: tuple | None
 
 
+def _on_card(x) -> bool:
+    """Whether ``x`` lies on a card, where the kernels run (the plain
+    versions run on the CPU)."""
+    return x.device.type == "cuda"
+
+
+_NON_DIFF = ("xy", "depth", "normal", "radius", "rect_min", "rect_max",
+             "tiles_touched", "valid")
+
+
 class PreprocessFn(torch.autograd.Function):
     """The preprocess pass with its own backward: on CPU tensors the plain
     forward (autograd off) and the plain backward
     (``preprocess_backward_reference``), on CUDA tensors the kernels of
-    csrc/preprocess.cu. Only ``T`` and ``color`` carry a gradient; the
-    rest of ``PreprocessOut`` is marked non-differentiable."""
+    csrc/preprocess.cu. The SH come as two blocks, ``sh_dc`` and
+    ``sh_rest``. Outputs: ``T`` and ``color``, or, given ``features`` (on
+    a card), the payload rows in their place, then ``PreprocessOut``'s
+    other fields (``_NON_DIFF``); only the first carry a gradient, the
+    others are marked non-differentiable. The
+    payload's gradient gives the opacity's and the features' (and the
+    colours', when given) as its columns."""
 
     @staticmethod
-    def forward(ctx, means3D, scales, quats, opacity, shs, colors_precomp,
-                mask, viewmat, campos, opts: _Options):
-        if means3D.device.type == "cpu":
-            out, clamped = _preprocess_plain(
-                means3D, scales, quats, opacity, shs, mask, viewmat, campos,
-                opts.sh_degree, opts.scale_factor, opts.settings,
-                opts.scale_modifier, colors_precomp, opts.angle_bounds,
-                opts.cull_bounds)
-        else:
+    def forward(ctx, means3D, scales, quats, opacity, sh_dc, sh_rest,
+                colors_precomp, features, mask, viewmat, campos,
+                opts: _Options):
+        shs = None if sh_dc is None else (sh_dc, sh_rest)
+        if _on_card(means3D):
             out, clamped = _preprocess_kernel(
-                means3D, scales, quats, opacity, shs, colors_precomp, mask,
-                viewmat, campos, opts)
-        ctx.save_for_backward(means3D, scales, quats, shs, viewmat, campos,
-                              clamped)
+                means3D, scales, quats, opacity, shs, colors_precomp,
+                features, mask, viewmat, campos, opts)
+        else:
+            out, clamped = _preprocess_plain(
+                means3D, scales, quats, opacity, shs, mask,
+                viewmat, campos, opts.sh_degree, opts.scale_factor,
+                opts.settings, opts.scale_modifier, colors_precomp,
+                opts.angle_bounds, opts.cull_bounds)
+        ctx.save_for_backward(means3D, scales, quats, sh_dc, sh_rest,
+                              viewmat, campos, clamped)
         ctx.opts = opts
         ctx.colors_given = colors_precomp is not None
-        ctx.mark_non_differentiable(*(getattr(out, f) for f in (
-            "xy", "depth", "normal", "radius", "rect_min", "rect_max",
-            "tiles_touched", "valid")))
-        return tuple(out)
+        ctx.direct = out.payload is not None
+        ctx.C = out.color.shape[1]
+        rest = tuple(getattr(out, f) for f in _NON_DIFF)
+        ctx.mark_non_differentiable(*rest)
+        lead = (out.payload,) if ctx.direct else (out.T, out.color)
+        return (*lead, *rest)
 
     @staticmethod
     @span("preprocess.bwd")
-    def backward(ctx, dT, dxy, ddepth, dnormal, dcolor, *_):
-        means3D, scales, quats, shs, viewmat, campos, clamped = \
+    def backward(ctx, *grads):
+        means3D, scales, quats, sh_dc, sh_rest, viewmat, campos, clamped = \
             ctx.saved_tensors
+        shs = None if sh_dc is None else (sh_dc, sh_rest)
         opts = ctx.opts
-        if means3D.device.type == "cpu":
-            dm, ds, dq, dsh = preprocess_backward_reference(
-                means3D, scales, quats, shs, viewmat, campos, opts.sh_degree,
-                clamped, dT, dcolor, opts.scale_modifier)
+        if ctx.direct:
+            dT, dcolor = payload_views(grads[0], ctx.C)
         else:
+            dT, dcolor = grads[:2]
+        if _on_card(means3D):
             dm, ds, dq, dsh = _preprocess_backward_kernel(
                 means3D, scales, quats, shs, viewmat, campos, clamped, dT,
                 dcolor, opts)
-        return (dm, ds, dq, None, dsh, dcolor if ctx.colors_given else None,
+        else:
+            dm, ds, dq, dsh = preprocess_backward_reference(
+                means3D, scales, quats, shs, viewmat, campos,
+                opts.sh_degree, clamped, dT, dcolor, opts.scale_modifier)
+        d_dc, d_rest = (None, None) if dsh is None else dsh
+        dop = dfeat = None
+        if ctx.direct:
+            dop = grads[0][:, PAYLOAD_BASE - 1]
+            dfeat = grads[0][:, PAYLOAD_BASE + ctx.C:]
+        return (dm, ds, dq, dop, d_dc, d_rest,
+                dcolor if ctx.colors_given else None, dfeat,
                 None, None, None, None)
 
 
@@ -672,13 +812,19 @@ class PreprocessFn(torch.autograd.Function):
 def preprocess(means3D, scales, quats, opacity, shs, mask, viewmat, campos,
                sh_degree, scale_factor, settings: RasterSettings,
                scale_modifier=1.0, colors_precomp=None,
-               angle_bounds=None, cull_bounds=None) -> PreprocessOut:
+               angle_bounds=None, cull_bounds=None,
+               features=None) -> PreprocessOut:
     """Full preprocess pass (reference forward.cu:174-287), arguments as
     ``preprocess_reference``'s, through ``PreprocessFn``: float32 CPU
     tensors run the plain versions, float32 CUDA tensors launch the
     kernels (the counters ``launches.preprocess_fwd`` and
     ``launches.preprocess_bwd`` count them); any other device or dtype
-    raises."""
+    raises. ``shs`` is [P, K, C] or the model's (DC, rest) blocks.
+
+    Given ``features`` [P, S] on a card, the forward kernel writes the
+    compositor's payload rows (``PreprocessOut.payload``; ``T`` and
+    ``color`` are views of them; counter ``payload.direct``); elsewhere
+    ``payload`` is None and the caller packs them."""
     dev = means3D.device.type
     if dev not in ("cpu", "cuda"):
         raise ValueError(f"preprocess runs on cpu or cuda tensors, not "
@@ -687,11 +833,20 @@ def preprocess(means3D, scales, quats, opacity, shs, mask, viewmat, campos,
         raise TypeError(f"preprocess takes float32 tensors, not "
                         f"{means3D.dtype} (preprocess_reference runs any "
                         f"float dtype)")
-    if colors_precomp is not None:
-        shs = None
+    sh_dc, sh_rest = _sh_blocks(None if colors_precomp is not None
+                                else shs)
+    direct = features is not None and _on_card(means3D)
     out = PreprocessFn.apply(
-        means3D, scales, quats, opacity, shs, colors_precomp, mask, viewmat,
-        campos, _Options(int(sh_degree), float(scale_factor), settings,
-                         float(scale_modifier), angle_bounds, cull_bounds))
-    return PreprocessOut(*out)
-
+        means3D, scales, quats, opacity, sh_dc, sh_rest, colors_precomp,
+        features if direct else None, mask, viewmat, campos,
+        _Options(int(sh_degree), float(scale_factor), settings,
+                 float(scale_modifier), angle_bounds, cull_bounds))
+    if not direct:
+        return PreprocessOut(T=out[0], color=out[1],
+                             **dict(zip(_NON_DIFF, out[2:])))
+    count("payload.direct")
+    payload = out[0]
+    T, color = payload_views(payload, payload.shape[1] - PAYLOAD_BASE
+                             - features.shape[1])
+    return PreprocessOut(T=T, color=color, payload=payload,
+                         **dict(zip(_NON_DIFF, out[1:])))

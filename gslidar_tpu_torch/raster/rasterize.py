@@ -24,7 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-from gslidar_tpu_torch.raster.composite_fwd import make_params, pack_payload
+from gslidar_tpu_torch.raster.composite_fwd import make_params, payload_rows
 from gslidar_tpu_torch.raster.composite_op import CompositeOp
 from gslidar_tpu_torch.raster.preprocess import preprocess
 from gslidar_tpu_torch.raster.settings import RasterSettings
@@ -53,26 +53,31 @@ def rasterize(means3D, scales, rotations, opacity, shs, features, mask,
     Args:
         means3D: [P, 3]; scales: [P, >=2] activated; rotations: [P, 4] raw
             quats; opacity: [P] activated (optionally * marginal_t);
-        shs: [P, K, C] SH coefficients (or None with colors_precomp [P, C]);
+        shs: [P, K, C] SH coefficients, or the model's (DC [P, 1, C],
+            rest [P, K - 1, C]) blocks (or None with colors_precomp
+            [P, C]);
         features: [P, S] extra channels; mask: [P] bool prefilter;
         viewmat: [4, 4] world->camera row-major; campos: [3] camera center;
         bg: [C]; sh_degree: int; scale_factor: float;
         T_tap: optional [P, 3, 3] zeros added to the splat frame.
     """
+    if features is None or features.shape[-1] == 0:
+        features = means3D.new_zeros((means3D.shape[0], 0))
+    # the kernel writes the payload rows, unless a tap on T needs T as an
+    # operand of its own
     prep = preprocess(means3D, scales, rotations, opacity, shs, mask,
                       viewmat, campos, sh_degree, scale_factor, settings,
                       scale_modifier, colors_precomp, angle_bounds,
-                      cull_bounds)
+                      cull_bounds, features=None if T_tap is not None
+                      else features)
     if T_tap is not None:
         prep = prep._replace(T=prep.T + T_tap)
-    if features is None or features.shape[-1] == 0:
-        features = means3D.new_zeros((means3D.shape[0], 0))
     C = prep.color.shape[-1]
     S = features.shape[-1]
 
     info = {}
     color, feature, depth, misc = CompositeOp.apply(
-        pack_payload(prep, opacity, features), prep.rect_min, prep.rect_max,
+        payload_rows(prep, opacity, features), prep.rect_min, prep.rect_max,
         prep.depth.detach(), prep.tiles_touched, scale_factor,
         make_params(scale_factor, settings, angle_bounds), settings, C, S,
         info)

@@ -122,12 +122,12 @@ def port_rows(sc, settings):
     tensors, on any device) through the port's own preprocess (SH degree
     3, scale factor 1) and binning."""
     from gslidar_tpu_torch.raster.binning import bin_gaussians
-    from gslidar_tpu_torch.raster.composite_fwd import pack_payload
+    from gslidar_tpu_torch.raster.composite_fwd import payload_rows
     from gslidar_tpu_torch.raster.preprocess import preprocess
     prep = preprocess(sc["means"], sc["scales"], sc["quats"], sc["opac"],
                       sc["shs"], sc["mask"], sc["viewmat"], sc["campos"], 3,
-                      1.0, settings)
+                      1.0, settings, features=sc["feats"])
     b = bin_gaussians(prep.rect_min, prep.rect_max, prep.depth,
                       prep.tiles_touched, 1.0, settings,
-                      payload=pack_payload(prep, sc["opac"], sc["feats"]))
+                      payload=payload_rows(prep, sc["opac"], sc["feats"]))
     return b.data_rows.contiguous(), b.tile_starts

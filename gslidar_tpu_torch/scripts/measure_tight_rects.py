@@ -200,7 +200,8 @@ def main(argv=None):
                 sc["shs"], sc["mask"], torch.eye(4, device=device),
                 torch.zeros(3, device=device), SH_DEGREE, SCALE_FACTOR, s)
         K_now, K_axis, K_row = rect_counts(
-            type(pre["square"])(*(x[sub] for x in pre["square"])),
+            type(pre["square"])(*(x if x is None else x[sub]
+                                  for x in pre["square"])),
             sc["opacity"][sub], square)
     print(f"K current (square rect):      {K_now:>10,}")
     print(f"K per-axis eps-rect:          {K_axis:>10,}  "

@@ -35,6 +35,9 @@ Counters. ``count(name, n)`` adds to a plain integer, always on;
   ``gather_rows``, ``op_chain``);
 - ``train_steps``: one per training step;
 - ``instances``: the (gaussian, tile) instances binning made, per render;
+- ``payload.direct`` and ``payload.packed``: renders whose payload rows
+  the preprocess kernel wrote (``raster/preprocess.py``), and rows packed
+  eagerly (``composite_fwd.pack_payload``: the CPU, a tap on T);
 - ``loss_graph.captures`` and ``loss_graph.replays``: the losses' CUDA
   graph pairs captured, and their forwards and backwards replayed
   (``engine/loss_graph.py``);

@@ -240,7 +240,8 @@ def test_function_outputs_and_refusals():
         x = getattr(out, f)
         assert x.grad_fn is None and not x.requires_grad, f
     ref = preprocess_reference(means, *args, shs, *rest)
-    for f in out._fields:
+    assert out.payload is None and ref.payload is None
+    for f in out._fields[:-1]:
         assert torch.equal(getattr(out, f).detach(),
                            getattr(ref, f).detach()), f
     d = {k: v.double() if v.dtype == torch.float32 else v
@@ -278,7 +279,8 @@ def test_kernels_match_plain_on_card(cuda_device):
     out = pp.preprocess(leaves[0], leaves[1], leaves[2], t["opac"],
                         leaves[3], *args[5:])
     plain, _ = pp._preprocess_plain(*args)
-    for f in out._fields:
+    assert out.payload is None and plain.payload is None
+    for f in out._fields[:-1]:
         a, b = getattr(out, f).detach(), getattr(plain, f)
         if a.dtype.is_floating_point:
             assert float((a - b).abs().max()) <= \
@@ -297,3 +299,150 @@ def test_kernels_match_plain_on_card(cuda_device):
     for name, a, b in zip(GRAD_KEYS, got, want):
         scale = b.abs().amax(0).clamp_min(1e-30)
         assert float(((a - b).abs().amax(0) / scale).max()) <= 1e-5, name
+
+
+# ------------------------------------------------- the direct payload path
+def _plain_kernel(means3D, scales, quats, opacity, shs, colors_precomp,
+                  features, mask, viewmat, campos, opts):
+    """``_preprocess_kernel``'s contract in plain torch: the plain
+    forward's fields and, given the features, the payload rows written
+    through ``payload_views``, where the kernel writes them."""
+    from gslidar_tpu_torch.raster import preprocess as pp
+    out, clamped = pp._preprocess_plain(
+        means3D, scales, quats, opacity, shs, mask, viewmat, campos,
+        opts.sh_degree, opts.scale_factor, opts.settings,
+        opts.scale_modifier, colors_precomp, opts.angle_bounds,
+        opts.cull_bounds)
+    if features is None:
+        return out, clamped
+    P, C = out.color.shape
+    payload = torch.empty(P, 10 + C + features.shape[1])
+    T, color = pp.payload_views(payload, C)
+    T.copy_(out.T)
+    color.copy_(out.color)
+    payload[:, 9] = opacity
+    payload[:, 10 + C:] = features
+    return out._replace(T=T, color=color, payload=payload), clamped
+
+
+@pytest.fixture
+def card_standins(monkeypatch):
+    """The card's path on the CPU: ``PreprocessFn`` takes the kernels'
+    route, and plain stand-ins keep the kernels' contracts; returns the
+    strides of the cotangents the backward was given, one entry a call."""
+    from gslidar_tpu_torch.raster import preprocess as pp
+    seen = []
+
+    def backward(means3D, scales, quats, shs, viewmat, campos, clamped, dT,
+                 dcolor, opts):
+        seen.append((dT.stride(), None if shs is None else dcolor.stride()))
+        return pp.preprocess_backward_reference(
+            means3D, scales, quats, shs, viewmat, campos, opts.sh_degree,
+            clamped, dT, dcolor, opts.scale_modifier)
+    monkeypatch.setattr(pp, "_on_card", lambda x: True)
+    monkeypatch.setattr(pp, "_preprocess_kernel", _plain_kernel)
+    monkeypatch.setattr(pp, "_preprocess_backward_kernel", backward)
+    return seen
+
+
+def _payload_counts():
+    from gslidar_tpu_torch.utils.trace import counters
+    c = counters()
+    return [c.get("payload.direct", 0), c.get("payload.packed", 0)]
+
+
+@pytest.mark.parametrize("variant,P", [("sh0", 300), ("sh3", 300),
+                                       ("colors", 300), ("sh3", 0)])
+def test_direct_payload_matches_pack_payload(variant, P, card_standins):
+    """Given the features, ``preprocess`` returns the payload rows, and
+    ``T`` and ``color`` as views of them: ``pack_payload``'s rows of the
+    parent path (``get_features``'s one [P, K, C] tensor, its separate
+    outputs, the eager pack) bit for bit, the other fields equal. The
+    gradients of every input through the payload equal the parent path's
+    bit for bit, the backward reading T's and the colour's cotangents in
+    place in the payload's gradient rows."""
+    from gslidar_tpu_torch.models import gaussians as G
+    from gslidar_tpu_torch.raster import preprocess as pp
+    from gslidar_tpu_torch.raster.composite_fwd import pack_payload
+    sc, _, ts = _scene(True, seed=81, P=max(P, 1))
+    t = {k: v[:P] if k not in ("viewmat", "campos") else v
+         for k, v in to_torch(sc).items()}
+    deg = 0 if variant == "sh0" else 3
+    rng = np.random.default_rng(82)
+    col = (torch.as_tensor(rng.uniform(0, 1, (P, 4)).astype(np.float32))
+           if variant == "colors" else None)
+    D = 10 + 4 + t["feats"].shape[1]
+    gpay = torch.as_tensor(rng.normal(size=(P, D)).astype(np.float32))
+
+    def run(direct):
+        L = {k: t[k].clone().requires_grad_(True)
+             for k in ("means", "scales", "quats", "opac", "feats")}
+        L["f_dc"] = t["shs"][:, :1].clone().requires_grad_(True)
+        L["f_rest"] = t["shs"][:, 1:].clone().requires_grad_(True)
+        if col is not None:
+            L["colors"] = col.clone().requires_grad_(True)
+        shs = (L["f_dc"], L["f_rest"]) if direct else G.get_features(L)
+        before = _payload_counts()
+        prep = pp.preprocess(L["means"], L["scales"], L["quats"], L["opac"],
+                             shs, t["mask"], t["viewmat"], t["campos"], deg,
+                             1.0, ts, colors_precomp=L.get("colors"),
+                             features=L["feats"] if direct else None)
+        rows = (prep.payload if direct
+                else pack_payload(prep, L["opac"], L["feats"]))
+        counts = [a - b for a, b in zip(_payload_counts(), before)]
+        keys = [k for k in L if not (col is not None and k.startswith("f_"))]
+        grads = torch.autograd.grad((rows * gpay).sum(), [L[k] for k in keys],
+                                    allow_unused=True)
+        return prep, rows, counts, dict(zip(keys, grads))
+
+    prep_d, rows_d, counts_d, grads_d = run(True)
+    prep_p, rows_p, counts_p, grads_p = run(False)
+    assert counts_d == [1, 0] and counts_p == [0, 1]
+    assert rows_d.shape == (P, D) and torch.equal(rows_d, rows_p)
+    assert prep_d.T._base is rows_d and prep_d.color._base is rows_d
+    for f in prep_p._fields[:-1]:
+        assert torch.equal(getattr(prep_d, f).detach(),
+                           getattr(prep_p, f).detach()), f
+    for k, a in grads_p.items():
+        b = grads_d[k]
+        assert b is not None and torch.equal(b, a), k
+    assert len(card_standins) == 2          # the direct run's, the parent's
+    if P:
+        # the backward read the payload's gradient rows where they lie
+        assert card_standins[0] == ((D, 1, 3),
+                                    None if col is not None else (D, 1))
+        assert float(grads_d["means"].abs().max()) > 0
+
+
+def test_payload_counters_on_the_cpu_and_under_a_tap(card_standins,
+                                                     monkeypatch):
+    """``payload.direct`` counts a render whose rows the kernel wrote and
+    ``payload.packed`` one packed eagerly: on the card's route 1 and 0 a
+    render, under a T tap 0 and 1 (the tap needs T as an operand of its
+    own), and on the CPU's own route 0 and 1."""
+    import gslidar_tpu_torch.raster.rasterize as rz
+    from gslidar_tpu_torch.raster import preprocess as pp
+    sc, _, ts = _scene(False, seed=91, P=200)
+    t = to_torch(sc)
+    P = t["means"].shape[0]
+    bg = torch.tensor([0.0, 0.0, 0.0, 1.0])
+    shs = (t["shs"][:, :1], t["shs"][:, 1:])
+
+    def render(tap=None):
+        before = _payload_counts()
+        out = rz.rasterize(t["means"], t["scales"], t["quats"], t["opac"],
+                           shs, t["feats"], t["mask"], t["viewmat"],
+                           t["campos"], bg, 3, 1.0, ts, T_tap=tap)
+        return out, [a - b for a, b in zip(_payload_counts(), before)]
+
+    direct, counts = render()
+    assert counts == [1, 0]
+    tapped, counts = render(torch.zeros(P, 3, 3, requires_grad=True))
+    assert counts == [0, 1]
+    monkeypatch.setattr(pp, "_on_card", lambda x: x.device.type == "cuda")
+    plain, counts = render()
+    assert counts == [0, 1]
+    assert direct.num_pairs == plain.num_pairs > 0
+    for a, b in ((direct, plain), (tapped, plain)):
+        assert torch.equal(a.color, b.color)
+        assert torch.equal(a.feature, b.feature)
