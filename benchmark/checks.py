@@ -1,8 +1,9 @@
-"""What decides ``correct``: the program's outputs against the reference's
-on the same seeded inputs, each number beside its limit.
+"""What decides ``correct`` in a train cell: the program's outputs against
+the reference's on the same seeded inputs, each number beside its limit
+(``kinds/train.py``'s ``check`` compares them).
 
-Train cells. The program's first ``checked_steps`` steps went through the
-window's own call from the state handed to the window; the reference
+The program's first ``checked_steps`` steps went through the window's
+own call from the state handed to the window; the reference
 (``benchmark/reference``) takes the same steps from the same seeded
 parameters. Compared, each as a gap relative to the reference:
 
@@ -32,29 +33,46 @@ The limits of a cell are in ``benchmark/limits/<workload>.json``.
 
 from __future__ import annotations
 
-import gc
 import statistics
 
 import torch
 
 from benchmark import scene as S
-from benchmark.cells import fingerprint, leaf_norms, run_args
 
 B1 = 0.9
 
 
-def free_device():
-    gc.collect()
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
+class AttrDict(dict):
+    """The run's configuration, read as the program reads its Config."""
+
+    def __getattr__(self, key):
+        try:
+            return self[key]
+        except KeyError as e:
+            raise AttributeError(key) from e
+
+
+def run_args(config) -> AttrDict:
+    return AttrDict(config["run"])
+
+
+def fingerprint(params) -> dict:
+    """Per group, the float64 sum and sum of squares: enough to tell two
+    draws of the parameters apart."""
+    return {k: (float(v.double().sum()), float((v.double() ** 2).sum()))
+            for k, v in params.items()}
+
+
+def leaf_norms(tensors) -> dict:
+    return {k: float(torch.linalg.vector_norm(v.double()))
+            for k, v in tensors.items()}
 
 
 def reference_train(config, traffic, seed: int, calls, device,
                     lowered=None, fault=None, sink=None):
     """The reference's steps ``calls`` from the seeded parameters: the
-    same record the program's ``TrainCell.first_steps`` keeps, and the
-    initial parameters."""
+    same record the train kind's ``Cell.first_steps`` keeps
+    (``kinds/train.py``), and the initial parameters."""
     from benchmark.reference import raster, step as R
     args = run_args(config)
     sc = S.make_scene(config, device)

@@ -7,29 +7,31 @@
 configuration, its traffic mix and its metrics are found by name from
 ``BENCHMARK.json``: ``benchmark/configs/<config>.json``,
 ``benchmark/traffic/<traffic>.json``, ``benchmark/metrics/<metric>.py``,
-``benchmark/limits/<cell>.json``.
+``benchmark/limits/<cell>.json``, and the traffic mix's ``kind``,
+``benchmark/kinds/<kind>.py`` (see ``load_kind``).
 
-A run builds the cell from the seed (the scene, the model, the program's
-state), warms up every shape the traffic uses (its first, checked steps
-and the warm-up steps), measures for ``--seconds`` and reads the peak
-memory. With ``--trace 1`` it then profiles a short stretch of the same
-calls, and the per-layer metrics are read from that trace. It frees the
-program's state, runs the reference check, and prints each number
-compared beside its limit as the last lines of standard error and, as the
-last line of standard output, the result: ``correct``, ``attempted``,
-``failed``, ``metrics`` (the cell's end-to-end metrics, or with
-``--trace 1`` its per-layer metrics), ``device``, with ``--trace 1``
-``breakdown``, and last ``checks``.
+A run builds the kind's cell from the seed (the program's state and
+what it is fed), warms up every shape the traffic uses (its first,
+checked calls and the warm-up calls), measures for ``--seconds`` and
+reads the peak memory. With ``--trace 1`` it then profiles a short
+stretch of the same calls, and the per-layer metrics are read from that
+trace. It frees the program's state, runs the kind's
+check, and prints each number compared beside its limit as the last
+lines of standard error and, as the last line of standard output, the
+result: ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's
+end-to-end metrics, or with ``--trace 1`` its per-layer metrics),
+``device``, with ``--trace 1`` ``breakdown``, and last ``checks``.
 
 It exits non-zero and prints no result without a CUDA card (or with
 fewer than the cell asks for), and when ``jax``, ``jaxlib``, ``flax`` or
 the JAX package ``gslidar_tpu`` is loaded once the window has closed or
 when the result is about to be printed.
 
-``--control bf16`` and ``--control half_view`` are not runs of the
-program: they put the reference in its place, computed in bfloat16 or
-with half the view left out, and print the numbers it reads against the
-reference, to set and test the limits.
+``--control <name>`` is not a run of the program: it runs the kind's
+control of that name (``kinds/<kind>.py``'s ``CONTROLS``), the
+reference put in the program's place and run wrong on purpose, and
+prints the numbers it reads against the reference, to set and test the
+limits.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
+import gc  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
@@ -70,12 +73,13 @@ def load_spec(path=None) -> dict:
         return json.load(f)
 
 
-DATA_DIR = os.path.join(ROOT, "benchmark")
+BENCH_DIR = os.path.join(ROOT, "benchmark")
+DATA_DIR = BENCH_DIR
 
 
 def bench_file(*parts) -> str:
     """A data file of the benchmark: ``DATA_DIR`` holds ``configs/``,
-    ``traffic/`` and ``limits/``."""
+    ``traffic/``, ``limits/`` and ``kinds/``."""
     return os.path.join(DATA_DIR, *parts)
 
 
@@ -84,13 +88,45 @@ def load_json(*parts) -> dict:
         return json.load(f)
 
 
-def load_reader(name: str):
-    spec = importlib.util.spec_from_file_location(
-        "benchmark_metric_" + name.replace(".", "_"),
-        os.path.join(ROOT, "benchmark", "metrics", f"{name}.py"))
+def load_module(name: str, path: str):
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_reader(name: str):
+    return load_module("benchmark_metric_" + name.replace(".", "_"),
+                       os.path.join(BENCH_DIR, "metrics", f"{name}.py"))
+
+
+def load_kind(name: str):
+    """The module of a traffic mix's ``kind``: ``kinds/<kind>.py`` under
+    ``DATA_DIR``, else under ``benchmark/``. It gives
+
+    * ``Cell(config, traffic, seed, device)``, the system under test as
+      the traffic drives it: ``first_steps()``, the checked calls, which
+      keep in ``record`` what the check needs of the program's run;
+      ``call(i)``, one call of the warm-up or the window; ``again(i)``
+      and ``traced_calls``, the calls of the traced stretch; ``free()``;
+    * ``check(config, traffic, seed, record, device)``, run once the
+      program's state is freed: ``(numbers, lines, extras)``, the numbers
+      compared, named as in ``limits/<cell>.json`` and with
+      ``same_inputs``, 0 when the reference was handed the program's
+      inputs; lines for standard error; and what the metric readers read
+      besides the run (``Context``), such as ``work``;
+    * ``CONTROLS``, the names of its controls, and ``control(name,
+      config, traffic, seed, device)``, the numbers one reads.
+
+    Which cells report which metric is ``BENCHMARK.json``'s to say (a
+    metric's ``workloads``), not the kind's.
+    """
+    for d in (DATA_DIR, BENCH_DIR):
+        path = os.path.join(d, "kinds", f"{name}.py")
+        if os.path.exists(path):
+            return load_module("benchmark_kind_" + name, path)
+    raise FileNotFoundError(f"no kinds/{name}.py for the traffic kind "
+                            f"{name!r}")
 
 
 def cell_metrics(spec: dict, workload: str):
@@ -109,9 +145,19 @@ def sync(device):
         torch.cuda.synchronize()
 
 
+def free_device():
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
 class Context:
     """What the metric readers read (``benchmark/metrics/<name>.py``:
-    ``read(ctx)``, after the check)."""
+    ``read(ctx)``, after the check): the run's ``kind``, the set-up, the
+    window, the peak, the ``profile`` of a traced run, ``work`` (None
+    where the kind counts none) and the extras of the kind's check, which
+    may add keys and replace none but ``work``."""
 
     def __init__(self, **kw):
         self.__dict__.update(kw)
@@ -135,17 +181,33 @@ def run_window(cell, seconds: float, device):
     return n, time.perf_counter() - t0, lat
 
 
+def refuse_check(numbers: dict, limits: dict, extras: dict, ctx) -> None:
+    """Raise where a kind's check does not compare exactly the numbers
+    that ``limits/<cell>.json`` and ``same_inputs`` name, or where its
+    extras would replace what the harness measured (``work`` excepted)."""
+    if set(numbers) != set(limits):
+        raise ValueError(
+            f"the kind's check compares {sorted(numbers)}, the cell's "
+            f"limits name {sorted(limits)}: left out "
+            f"{sorted(set(limits) - set(numbers))}, without a limit "
+            f"{sorted(set(numbers) - set(limits))}")
+    clash = sorted(set(extras) & (set(vars(ctx)) - {"work"}))
+    if clash:
+        raise ValueError(f"the kind's check would replace {clash}, which "
+                         f"the harness measured")
+
+
 def run_cell(spec: dict, workload: str, seed: int, seconds: float,
              trace: bool, device) -> dict:
-    from benchmark import checks, tracing
-    from benchmark.cells import CELLS
-    from benchmark.counts import composite_bound_ms, step_work
+    from benchmark import tracing
 
     cellspec = next(w for w in spec["workloads"] if w["name"] == workload)
     config = load_json("configs", f"{cellspec['config']}.json")
     traffic = load_json("traffic", f"{cellspec['traffic']}.json")
     limits = {k: v["limit"] for k, v in
               load_json("limits", f"{workload}.json")["limits"].items()}
+    limits["same_inputs"] = 0
+    kind = load_kind(traffic["kind"])
     e2e, layer = cell_metrics(spec, workload)
     metrics = layer if trace else e2e
     readers = {m["name"]: load_reader(m["name"]) for m in metrics}
@@ -153,7 +215,7 @@ def run_cell(spec: dict, workload: str, seed: int, seconds: float,
         torch.cuda.reset_peak_memory_stats()
 
     # set-up: the cell, its checked first steps, the warm-up
-    cell = CELLS[traffic["kind"]](config, traffic, seed, device)
+    cell = kind.Cell(config, traffic, seed, device)
     cell.first_steps()
     for _ in range(int(traffic["warmup_steps"])):
         cell.call()
@@ -169,48 +231,28 @@ def run_cell(spec: dict, workload: str, seed: int, seconds: float,
                   calls=n, window_s=window_s, latencies_s=lat,
                   peak_bytes=peak, profile=None, work=None)
     if trace:
-        first = cell.record["calls"]
-
-        def again(i):
-            cell.stream = iter([first[i % len(first)]])
-            return cell.call()
         for i in range(2):
-            again(i)
-        ctx.profile = tracing.profile(again, 2 * len(first), ctx.kind)
+            cell.again(i)
+        ctx.profile = tracing.profile(cell.again, cell.traced_calls,
+                                      ctx.kind)
 
-    prog_record = cell.record
-    P = cell.P
-    floats = cell.floats_per_gaussian
+    record = cell.record
     cell.free()
     cell = None
-    checks.free_device()
+    free_device()
 
-    # the check
-    sink = []
-    ref = checks.reference_train(config, traffic, seed, prog_record["calls"],
-                                 device, sink=sink)
-    per_group = {}
-    numbers = checks.train_numbers(prog_record, ref, device, per_group)
-    print("descent_gap of each group: " + ", ".join(
-        f"{k} {v:.3g}" for k, v in sorted(per_group.items())),
-        file=sys.stderr)
-    for k, v in sorted(checks.term_gaps(prog_record, ref).items()):
-        print(f"loss term {k}: relative gap {v:.3g}", file=sys.stderr)
-    print("loss gap of each step: " + ", ".join(
-        f"{v:.3g}" for v in checks.step_loss_gaps(prog_record, ref)),
-        file=sys.stderr)
-    same = checks.same_params(prog_record["params0"], ref["params0"])
-    h, w = config["run"]["hw"]
-    ctx.work = step_work(P, floats, h * 2 * w, sink, 16, 16, 4, 4)
-    ctx.composite_bwd_bound_ms = composite_bound_ms(sink, 4, 4, True)
-    del ref
-    checks.free_device()
+    numbers, lines, extras = kind.check(config, traffic, seed, record,
+                                        device)
+    for line in lines:
+        print(line, file=sys.stderr)
+    refuse_check(numbers, limits, extras, ctx)
+    ctx.__dict__.update(extras)
+    free_device()
 
     checked = {k: {"value": v, "limit": limits[k]} for k, v in
                numbers.items()}
-    correct = (same and all(np.isfinite(c["value"])
-                            and c["value"] <= c["limit"]
-                            for c in checked.values()))
+    correct = all(np.isfinite(c["value"]) and c["value"] <= c["limit"]
+                  for c in checked.values())
     out_metrics = {}
     for m in metrics:
         v = readers[m["name"]].read(ctx)
@@ -231,7 +273,6 @@ def run_cell(spec: dict, workload: str, seed: int, seconds: float,
         print(f"device time launched inside the spans: "
               f"{ctx.profile.attributed_s:.6g} of "
               f"{ctx.profile.device_total_s:.6g} s", file=sys.stderr)
-    checked["same_inputs"] = {"value": 0 if same else 1, "limit": 0}
     result["checks"] = checked
     result["forbidden_after_window"] = after_window
     return result
@@ -243,7 +284,7 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, required=True)
     p.add_argument("--seconds", type=float, required=True)
     p.add_argument("--trace", type=int, choices=(0, 1), default=0)
-    p.add_argument("--control", choices=("bf16", "half_view"))
+    p.add_argument("--control", help="a control of the cell's kind")
     a = p.parse_args(argv)
     spec = load_spec()
     cellspec = next((w for w in spec["workloads"]

@@ -1,5 +1,6 @@
 """BENCHMARK.json names only what the harness can find: every cell's
-configuration, traffic mix and limits, and every metric's reader."""
+configuration, traffic mix, limits and its traffic's kind, and every
+metric's reader."""
 
 import json
 import os
@@ -19,6 +20,9 @@ def test_every_name_has_its_file():
                           ("traffic", w["traffic"]),
                           ("limits", w["name"])):
             assert os.path.exists(os.path.join(BENCH, sub, f"{name}.json"))
+        kind = json.load(open(os.path.join(
+            BENCH, "traffic", f"{w['traffic']}.json")))["kind"]
+        assert os.path.exists(os.path.join(BENCH, "kinds", f"{kind}.py"))
     cells = {w["name"] for w in spec["workloads"]}
     e2e = {m["name"]: m for m in spec["end_to_end"]}
     for m in spec["end_to_end"] + spec["per_layer"]:
