@@ -1,0 +1,11 @@
+"""The refinement's backward (``loss.backward()``, through
+``torch.autograd.backward``): the device ms per epoch of the work
+launched inside its span, on autograd's thread too, in the traced
+stretch of the window's own epochs (benchmark/tracing.py)."""
+
+
+def read(ctx):
+    if ctx.profile is None:
+        return None
+    s = ctx.profile.span_device_s("refine.backward")
+    return 1e3 * s / ctx.profile.units if s > 0 else None

@@ -15,6 +15,12 @@ The U-Net runs in full float32 on a card (TF32 off), as it does on the
 CPU. The weights start from flax's initialisation scheme drawn from a
 seeded ``torch.Generator``, and dropout draws from another: neither
 stream can match JAX's ``PRNGKey``.
+
+One epoch is ``refine_epoch``: the box mask drawn and copied to the
+device, the epoch's one-cycle rate, then ``refine_step``'s forward and
+loss (``unet_loss``), backward and Adam (``unet_update``). ``refine``'s
+loop calls it, and so may any caller that holds the model, the optimizer,
+the batch, the mask's ``default_rng`` and the dropout generator.
 """
 
 from __future__ import annotations
@@ -29,6 +35,8 @@ import torch
 from gslidar_tpu_torch.models.unet import (UNet, init_unet,
                                            unet_from_leaves, unet_leaves)
 from gslidar_tpu_torch.raster.preprocess import full_f32
+from gslidar_tpu_torch.utils.trace import (backward_begins, count, host_sync,
+                                           span)
 
 BCE_EPS = 1e-7
 
@@ -82,21 +90,55 @@ def bce(out, y):
 
 def adam(model):
     """optax's ``adam`` over the U-Net (eps 1e-8, bias-corrected); the
-    learning rate is set per step by ``refine_step``."""
+    learning rate is set per step by ``unet_update``."""
     return torch.optim.Adam(model.parameters(), lr=0.0, betas=(0.9, 0.999),
                             eps=1e-8)
+
+
+def unet_loss(model, x, y, mask, generator):
+    """The clipped BCE of the U-Net on the masked input ``x * mask``
+    against ``y``; in train mode dropout draws from ``generator``."""
+    with span("refine.forward"):
+        out = model(x * mask, generator)
+    with span("refine.loss"):
+        return bce(out, y)
+
+
+def unet_update(opt, lr):
+    """Adam over the gradients left in ``.grad``, at the rate ``lr``."""
+    with span("refine.adam"):
+        for group in opt.param_groups:
+            group["lr"] = lr
+        opt.step()
 
 
 def refine_step(model, opt, x, y, mask, lr, generator):
     """One full-batch epoch: the clipped BCE of the masked input, its
     gradients (left in ``.grad``) and an Adam step at ``lr``. Returns the
     loss."""
-    for group in opt.param_groups:
-        group["lr"] = lr
-    loss = bce(model(x * mask, generator), y)
+    loss = unet_loss(model, x, y, mask, generator)
     opt.zero_grad(set_to_none=True)
-    loss.backward()
-    opt.step()
+    backward_begins(loss, "bwd.unet.out")
+    with span("refine.backward"):
+        loss.backward()
+    unet_update(opt, lr)
+    return loss
+
+
+def refine_epoch(model, opt, x, y, rng, i, epochs, generator):
+    """Epoch ``i`` of ``epochs``, in full float32: a box mask from
+    ``rng`` (``box_mask``), copied to x's device, then ``refine_step`` at
+    the one-cycle rate of update ``i``. Returns the loss tensor."""
+    with span("refine.epoch"), full_f32():
+        with span("refine.mask"):
+            m = box_mask(rng, x.shape[2], x.shape[3])
+            # a blocking copy from pageable memory: it waits for the
+            # stream, the last epoch's Adam included
+            with host_sync("refine_mask"):
+                mask = torch.as_tensor(m, device=x.device)
+        loss = refine_step(model, opt, x, y, mask, _onecycle_lr(i, epochs),
+                           generator)
+    count("refine_epochs")
     return loss
 
 
@@ -128,18 +170,14 @@ def refine(args, device, on_epoch=None):
     rng = np.random.default_rng(0)
     printed = []
     print("Start UNet Optimization ...", flush=True)
-    with full_f32():
-        for i in range(epochs):
-            mask = torch.as_tensor(box_mask(rng, x.shape[2], x.shape[3]),
-                                   device=device)
-            loss = refine_step(model, opt, x, y, mask,
-                               _onecycle_lr(i, epochs), dropout)
-            if on_epoch is not None:
-                on_epoch(i, loss)
-            if i % 50 == 0:
+    for i in range(epochs):
+        loss = refine_epoch(model, opt, x, y, rng, i, epochs, dropout)
+        if on_epoch is not None:
+            on_epoch(i, loss)
+        if i % 50 == 0:
+            with host_sync("refine_print"):
                 printed.append((i, float(loss.detach())))
-                print(f"refine iter {i} loss {printed[-1][1]:.5f}",
-                      flush=True)
+            print(f"refine iter {i} loss {printed[-1][1]:.5f}", flush=True)
 
     ckpt = os.path.join(args.model_path, "ckpt", "refine.npz")
     os.makedirs(os.path.dirname(ckpt), exist_ok=True)

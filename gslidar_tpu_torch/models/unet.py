@@ -33,6 +33,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from gslidar_tpu_torch.utils.trace import backward_boundary, span
+
 BN_MOMENTUM = 0.01      # flax BatchNorm(momentum=0.99)
 BN_EPS = 1e-5
 
@@ -148,15 +150,25 @@ class UNet(nn.Module):
 
     def forward(self, x, generator=None):
         """x [B, 3, H, W] -> [B, 1, H, W] in (0, 1). In train mode the
-        dropout draws from ``generator`` (on x's device)."""
-        skips = [self.conv_in(x)]
-        for down in self.downs:
-            skips.append(down(skips[-1], generator))
-        y = self.attn(skips.pop(), generator)
-        for up in self.ups:
-            y = up(y, skips.pop(), generator)
-        y = self.conv_out(F.relu(self.bn(y)))
-        return torch.sigmoid(y)
+        dropout draws from ``generator`` (on x's device). Each stage is a
+        ``unet.<stage>`` span, and its backward a ``bwd.unet.<stage>``
+        span on autograd's thread (``utils/trace.py``)."""
+        with span("unet.down"):
+            skips = [self.conv_in(x)]
+            for down in self.downs:
+                skips.append(down(skips[-1], generator))
+        with span("unet.attn"):
+            bottom = skips.pop()
+            backward_boundary([bottom], "bwd.unet.down")
+            y = self.attn(bottom, generator)
+        with span("unet.up"):
+            backward_boundary([y], "bwd.unet.attn")
+            for up in self.ups:
+                y = up(y, skips.pop(), generator)
+        with span("unet.out"):
+            backward_boundary([y], "bwd.unet.up")
+            y = self.conv_out(F.relu(self.bn(y)))
+            return torch.sigmoid(y)
 
 
 def init_unet(model: UNet, generator: torch.Generator) -> UNet:

@@ -34,6 +34,8 @@ Counters. ``count(name, n)`` adds to a plain integer, always on;
   ``preprocess_bwd``, ``chamfer_fwd``, ``chamfer_bwd``, ``adam``,
   ``gather_rows``, ``op_chain``);
 - ``train_steps``: one per training step;
+- ``refine_epochs``: one per epoch of the ray-drop refinement
+  (``engine/refine.py``'s ``refine_epoch``);
 - ``instances``: the (gaussian, tile) instances binning made, per render;
 - ``payload.direct`` and ``payload.packed``: renders whose payload rows
   the preprocess kernel wrote (``raster/preprocess.py``), and rows packed
@@ -44,7 +46,17 @@ Counters. ``count(name, n)`` adds to a plain integer, always on;
 - ``host_syncs`` and ``host_syncs.<site>``: one per device-to-host read,
   counted at the line that causes it (``host_sync``); a read inside a
   backward node of torch's is counted at the forward call that makes the
-  node, under a site whose name ends in ``_bwd``.
+  node, under a site whose name ends in ``_bwd``. A blocking copy from
+  the host that waits for the stream counts too: the refinement's box
+  mask, ``refine_mask``, one an epoch; ``refine_print``, the loss read
+  every 50th epoch of ``refine``'s loop.
+
+The refinement's spans: ``refine.epoch`` ⊃ ``refine.mask`` (the box
+mask drawn and copied), ``refine.forward`` (⊃ the U-Net's stages
+``unet.down``, ``unet.attn``, ``unet.up``, ``unet.out``), ``refine.loss``
+(the clipped BCE), ``refine.backward`` (``loss.backward()``; on
+autograd's thread ``bwd.unet.out``, ``bwd.unet.up``, ``bwd.unet.attn``,
+``bwd.unet.down``), ``refine.adam``.
 """
 
 from __future__ import annotations
