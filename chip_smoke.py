@@ -134,7 +134,9 @@ failing phase raises:
    GSLIDAR_LPIPS_WEIGHTS, where LPIPS on the card must equal the same call
    on the CPU within 1e-4 relative; ``refine`` for kitti360_nvs_1908's
    refine_epochs (1000) on the 6 train renders, whose loss must be finite
-   and lower at the last print than at the first, the U-Net's eval-mode
+   and lower at the last print than at the first and whose every epoch
+   launches each BatchNorm kernel pair 18 times (the counters set to 0
+   just before it), the U-Net's eval-mode
    forward on the card within 1e-4 absolute of the CPU's; ``refine_test``.
    It prints per pair the ms of the render, ``_depth3``, the host copies,
    each meter and the chamfer, the eval's seconds, ms per refine epoch
@@ -267,10 +269,21 @@ failing phase raises:
    ``torch._fused_adam_`` (a library yardstick the port never calls) each
    timed as 10 calls back to back between CUDA events, in turns, median
    of 3, beside ``adam_bound`` (``run_adam``);
-18. the result: the card's nvidia-smi line, one JSON line of the nine
-   kernels (the compositors, the preprocess pair, the chamfer pair and
-   Adam with their launches on each path), and the last line
-   ``{"ok": true, "device": {...}}``.
+18. the refinement U-Net's BatchNorm, ReLU and dropout kernel pairs
+   (``models/bn_act.py``, ``csrc/bn_act.cu``) at the shapes the U-Net
+   gives them in one training forward at 66x1030 (``bn_act_shapes``: 18,
+   with their ReLU and dropout), at B = 60 (the refine cell's batch) and
+   B = 6 (phase 11's): the keep mask and the clip flags bit for bit
+   against the plain version's, the output, the saved and running
+   statistics within 2e-6 of each tensor's largest element and the
+   gradients within 1e-5, one launch each way a call; at B = 60 the
+   forward and the backward of kernel and plain version timed per shape
+   (CUDA events, ``reps`` calls back to back, median of 3 in turns) and
+   summed beside ``bn_act_bound`` (``run_bn_act``);
+19. the result: the card's nvidia-smi line, one JSON line of the eleven
+   kernels (the compositors, the preprocess pair, the chamfer pair, Adam
+   and the BatchNorm pair with their launches on each path), and the
+   last line ``{"ok": true, "device": {...}}``.
 
 Wherever a phase counts the compositors' launches it counts the
 preprocess and chamfer kernels' too (``launch_counts``) and holds them to
@@ -280,6 +293,8 @@ forward and backward per step and DP camera (and per ``bench_train_step``
 step in phase 15), a forward per eval pair's PointsMeter, none per
 render. The training phases (6, 10, 12, 13, 14) and ``bench_train_step``
 hold each step to one Adam launch (``launches.adam``; ``StepLaunches``),
+and phase 11's ``refine`` holds each epoch to 18 launches of each
+BatchNorm kernel pair (``launches.bn_act_fwd``, ``launches.bn_act_bwd``),
 but a densify iteration's, which applies no update and launches none,
 and to two replays of the losses' CUDA graph pair per camera
 (``loss_graph.replays``: the forward and the backward), with a capture
@@ -1561,6 +1576,25 @@ def adam_launches():
 # the Adam kernel's launches of each training path's steps, for the
 # kernels line (each path records ``StepLaunches.held``'s count)
 ADAM_BY_PATH = {}
+# the BatchNorm kernel pairs' launches (forward, backward) of each path
+# that runs them, for the kernels line
+BN_ACT_BY_PATH = {}
+BN_ACT_COUNTERS = ("launches.bn_act_fwd", "launches.bn_act_bwd")
+
+
+def bn_act_launches():
+    """The BatchNorm kernel pairs' launches counted so far: (forward,
+    backward)."""
+    from gslidar_tpu_torch.utils.trace import counters
+    c = counters()
+    return tuple(c.get(k, 0) for k in BN_ACT_COUNTERS)
+
+
+def set_bn_act_launches(counts=(0, 0)):
+    """Set the two counts of ``bn_act_launches`` (0 by default)."""
+    from gslidar_tpu_torch.utils.trace import count
+    for k, want, now in zip(BN_ACT_COUNTERS, counts, bn_act_launches()):
+        count(k, want - now)
 # each training path's loss graphs (``StepLaunches.graphs_held``'s
 # summary), for the kernels line
 GRAPHS_BY_PATH = {}
@@ -2237,10 +2271,13 @@ def phase_eval_refine(args, params, alive, prior, smi):
         ev_t.append(e)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    set_bn_act_launches()
     t0 = time.perf_counter()
     model, printed = refine(eargs, device, on_epoch=on_epoch)
     torch.cuda.synchronize()
     refine_s = time.perf_counter() - t0
+    bn_launched = bn_act_launches()
+    BN_ACT_BY_PATH["refine (phase 11)"] = bn_launched
     peak["refine"] = torch.cuda.max_memory_allocated() / 2 ** 30
     del model
     epoch_ms = ev_t[0].elapsed_time(ev_t[-1]) / max(len(ev_t) - 1, 1)
@@ -2265,7 +2302,9 @@ def phase_eval_refine(args, params, alive, prior, smi):
     say(11, f"refine on {smi}: {epochs} epochs on "
             f"{n_pairs[1]} train renders [{n_pairs[1]}, 3, {h}, {2 * w}], "
             f"{epoch_ms:.3f} ms per epoch (CUDA events, epochs 2-{epochs}),"
-            f" {refine_s:.2f} s in all | loss by 50 epochs "
+            f" {refine_s:.2f} s in all | BatchNorm kernel launches, forward"
+            f" and backward, {bn_launched} (18 a pair an epoch: "
+            f"{18 * epochs}) | loss by 50 epochs "
             f"{[round(v, 5) for v in losses]} | U-Net eval forward, card vs "
             f"CPU on {len(xs)} test renders: max abs {u_err:.3g} (bar 1e-4)"
             f" | refine_test {refine_test_s:.2f} s: test "
@@ -2276,6 +2315,7 @@ def phase_eval_refine(args, params, alive, prior, smi):
     # a pair's render, and a chamfer forward in each of its 3 PointsMeters
     if not (ok_f and launches == (n, 0, n, 0, 3 * n, 0) and n_pairs == (2, 6)
             and finite and lp_ok and refine_ok and u_err <= 1e-4
+            and bn_launched == (18 * epochs, 18 * epochs)
             and sorted(results) == ["test", "train"]
             and saved_npy == {"gt": 8, "render_train": 6, "render_test": 2}
             and sorted(rt) == ["test", "train"]):
@@ -4269,6 +4309,173 @@ def run_adam(device, clock_hz, reps=10):
     return out
 
 
+# --------------------------------------------------------------- phase 18
+BN_ACT_BATCHES = (60, 6)      # the refine cell's batch, phase 11's
+BN_ACT_FWD_RTOL, BN_ACT_BWD_RTOL = 2e-6, 1e-5
+
+
+def bn_act_shapes(device):
+    """(C, H, W, relu, p) of each call of the BatchNorm op
+    (``models/bn_act.py::BnActFn``) in one training forward of the U-Net
+    on an HW panorama (h x 2w), in order: what the refine path gives the
+    kernels."""
+    import torch
+    from gslidar_tpu_torch.models import bn_act
+    from gslidar_tpu_torch.models.unet import UNet, init_unet
+    seen = []
+    apply = bn_act.BnActFn.apply
+
+    def record(x, *args):
+        seen.append((*x.shape[1:], args[-2], args[-1]))
+        return apply(x, *args)
+    model = init_unet(UNet(), torch.Generator().manual_seed(SEED)).to(
+        device).train()
+    saved = bn_act_launches()
+    bn_act.BnActFn.apply = record
+    try:
+        with torch.no_grad():
+            model(torch.rand(1, 3, HW[0], 2 * HW[1], device=device),
+                  torch.Generator(device=device).manual_seed(SEED))
+    finally:
+        del bn_act.BnActFn.apply
+        set_bn_act_launches(saved)
+    return seen
+
+
+def bn_act_inputs(shape, device, seed):
+    """Seeded float32 x (a mean and a spread of its own per channel),
+    weight, bias, running statistics and dy of ``shape`` on the card."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    C = shape[1]
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=device)
+
+    def rand(*s):
+        return torch.rand(s, generator=gen, device=device)
+    x = 3.0 * randn(C, 1, 1) + (0.5 + rand(C, 1, 1)) * randn(*shape)
+    return (x, 1.0 + 0.3 * randn(C), 0.2 * randn(C), 0.1 * randn(C),
+            1.0 + rand(C), randn(*shape))
+
+
+def run_bn_act(device, reps=5):
+    """Phase 18: the BatchNorm kernel pairs (``models/bn_act.py``,
+    ``csrc/bn_act.cu``) against their plain version at ``bn_act_shapes``
+    for each of BN_ACT_BATCHES: the keep mask and the clip flags bit for
+    bit, the output, the saved and the running statistics within
+    BN_ACT_FWD_RTOL of each tensor's largest element and the gradients
+    within BN_ACT_BWD_RTOL, one launch each way a call; at the first
+    batch each shape's forward and backward, kernel and plain, timed in
+    turns as ``reps`` calls back to back between CUDA events (median of
+    3), summed over the shapes beside ``bn_act_bound``. Returns the
+    numbers for the kernels line."""
+    import torch
+    from gslidar_tpu_torch.microbench.bounds import bn_act_bound
+    from gslidar_tpu_torch.models.bn_act import (
+        bn_act_backward_kernel, bn_act_backward_reference, bn_act_kernel,
+        bn_act_reference)
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    def loop_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(reps):
+            fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1]) / reps
+    shapes = bn_act_shapes(device)
+    say(18, f"the U-Net's BatchNorm ops in one training forward at "
+            f"{HW[0]}x{2 * HW[1]}, (C, H, W, relu, p): {shapes}")
+    t0 = time.perf_counter()
+    errs, bad, calls = {"fwd": 0.0, "bwd": 0.0}, [], 0
+    ms = {k: 0.0 for k in ("kernel fwd", "kernel bwd", "plain fwd",
+                           "plain bwd")}
+    bound = [0.0, 0.0]
+    launched = bn_act_launches()
+    for B in BN_ACT_BATCHES:
+        for i, (C, H, W, relu, p) in enumerate(shapes):
+            shape = (B, C, H, W)
+            x, w, b, rm, rv, dy = bn_act_inputs(shape, device,
+                                                SEED + 181 + B * 100 + i)
+            u = torch.rand(shape, device=device,
+                           generator=torch.Generator(device=device)
+                           .manual_seed(SEED + i)) if p > 0 else None
+            rmk, rvk = rm.clone(), rv.clone()
+            yk, keepk, savedk = bn_act_kernel(x, w, b, rmk, rvk, u, relu, p)
+            dk = bn_act_backward_kernel(dy, x, w, b, savedk, keepk, relu, p)
+            calls += 1
+            yp, keepp, savedp = bn_act_reference(x, w, b, rm, rv, u, relu,
+                                                 p)
+            dp = bn_act_backward_reference(dy, x, w, b, savedp, keepp,
+                                           relu, p)
+            f_err = max(rel(yk, yp), rel(savedk[:2], savedp[:2]),
+                        rel(rmk, rm), rel(rvk, rv))
+            b_err = max(rel(k, q) for k, q in zip(dk, dp))
+            same = (torch.equal(savedk[2], savedp[2])
+                    and (keepk is None if p == 0 else
+                         torch.equal(keepk, keepp)))
+            errs["fwd"] = max(errs["fwd"], f_err)
+            errs["bwd"] = max(errs["bwd"], b_err)
+            if not (same and f_err <= BN_ACT_FWD_RTOL
+                    and b_err <= BN_ACT_BWD_RTOL):
+                bad.append((shape, relu, p, same, f_err, b_err))
+            del yp, keepp, savedp, dp, yk, dk
+            row = ""
+            if B == BN_ACT_BATCHES[0]:
+                got = {}
+                for _ in range(3):           # in turns: plain, kernel
+                    for name, fn in (
+                            ("plain fwd", lambda: bn_act_reference(
+                                x, w, b, rm, rv, u, relu, p)),
+                            ("kernel fwd", lambda: bn_act_kernel(
+                                x, w, b, rm, rv, u, relu, p)),
+                            ("plain bwd", lambda: bn_act_backward_reference(
+                                dy, x, w, b, savedk, keepk, relu, p)),
+                            ("kernel bwd", lambda: bn_act_backward_kernel(
+                                dy, x, w, b, savedk, keepk, relu, p))):
+                        got.setdefault(name, []).append(loop_ms(fn))
+                got = {k: statistics.median(v) for k, v in got.items()}
+                bf, bb = bn_act_bound(x.numel(), p > 0)
+                bound[0] += bf.ms
+                bound[1] += bb.ms
+                for k, v in got.items():
+                    ms[k] += v
+                row = (" | " + ", ".join(f"{k} {v:.3f} ms"
+                                         for k, v in got.items())
+                       + f" | bound {bf.ms:.3f}, {bb.ms:.3f} ms")
+            say(18, f"B={B} C={C} {H}x{W} relu={relu} p={p}: kernels vs "
+                    f"plain, keep mask and clip flags equal {same}, "
+                    f"forward {f_err:.3g} (bar {BN_ACT_FWD_RTOL}), "
+                    f"gradients {b_err:.3g} (bar {BN_ACT_BWD_RTOL})" + row)
+            del x, w, b, rm, rv, dy, u, rmk, rvk, keepk, savedk
+            torch.cuda.empty_cache()
+    # the checked calls' launches; the timed ones are counted apart
+    timed = len(shapes) * 3 * (reps + 1)
+    n = tuple(a - b - timed for a, b in zip(bn_act_launches(), launched))
+    BN_ACT_BY_PATH["checks (phase 18)"] = (calls, calls)
+    say(18, f"BatchNorm kernel pairs at the {len(shapes)} shapes, B = "
+            f"{BN_ACT_BATCHES[0]}, summed (CUDA events, {reps} calls back "
+            f"to back, median of 3): " + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in ms.items())
+            + f" | bound forward {bound[0]:.3f} ms, backward "
+            f"{bound[1]:.3f} ms (bytes): the kernels at "
+            f"{bound[0] / ms['kernel fwd']:.3f} and "
+            f"{bound[1] / ms['kernel bwd']:.3f} of it | largest errors "
+            f"{errs} | launches of the checked calls {n} for {calls} "
+            f"calls | {time.perf_counter() - t0:.1f} s")
+    if bad or n != (calls, calls):
+        raise RuntimeError(f"the BatchNorm kernels disagree with the plain "
+                           f"version or launched other than once a call: "
+                           f"{bad}, {n} launches for {calls} calls")
+    return dict(ms=ms, bound=bound, errs=errs)
+
+
 # ---------------------------------------------------------------- phase 9
 def phase_op_chains(device, clock_hz):
     """The op-chain entry point, its launches counted; then each of the 16
@@ -4586,6 +4793,7 @@ def main():
     chains = phase_op_chains(device, clock_hz)
     cham = run_chamfer(device, clock_hz)
     adam = run_adam(device, clock_hz)
+    bn = run_bn_act(device)
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "composite_fwd", "route": "cuda",
@@ -4703,7 +4911,22 @@ def main():
         "plain_ms_10M": adam[ADAM_POINTS[1]]["ms"]["plain"],
         "library_ms_10M": adam[ADAM_POINTS[1]]["ms"]["library"],
         "bound_ms_10M": adam[ADAM_POINTS[1]]["bound"].ms,
-        "bound_by": adam[ADAM_POINTS[0]]["bound"].bound_by}],
+        "bound_by": adam[ADAM_POINTS[0]]["bound"].bound_by}, *({
+        "name": f"bn_act_{part}", "route": "cuda",
+        "source": "gslidar_tpu_torch/csrc/bn_act.cu",
+        "replaces": replaces,
+        "launches": sum(v[i] for v in BN_ACT_BY_PATH.values()),
+        "launches_by_path": {k: v[i] for k, v in BN_ACT_BY_PATH.items()},
+        "max_rel_err": bn["errs"][part],
+        "ms": bn["ms"][f"kernel {part}"],
+        "plain_ms": bn["ms"][f"plain {part}"],
+        "bound_ms": bn["bound"][i], "bound_by": "bytes", "library_ms": None,
+        "at": f"the U-Net's 18 BatchNorms at B = {BN_ACT_BATCHES[0]} and "
+              f"{HW[0]}x{2 * HW[1]}, summed"}
+        for i, (part, replaces) in enumerate((
+            ("fwd", "flax nn.BatchNorm in training, nn.relu and nn.Dropout "
+                    "of gslidar_tpu/models/unet.py (XLA)"),
+            ("bwd", "their autodiff (XLA)"))))],
         "loss_graphs_by_path": GRAPHS_BY_PATH}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -49,6 +49,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_D = ctypes.c_double
 # C signatures of the exported launchers: name -> argtypes (restype int)
 SIGNATURES = {
     "gslidar_composite_fwd": [
@@ -127,6 +128,21 @@ SIGNATURES = {
         _F, _F, _F, _F, _F, _F, _F,      # b1, 1 - b1, b2, 1 - b2, 1 / c1,
                                          # 1 / c2, eps
         _P,                              # stream
+    ],
+    "gslidar_bn_act_fwd": [
+        _I, _P, _P, _P, _P,              # device, x, u, weight, bias
+        _P, _P, _P, _P,                  # running_mean, running_var,
+                                         # saved, part
+        _P, _P, _L, _I, _L,              # y, keep, B, C, HW
+        _I, _F, _F, _F, _F, _D,          # relu, p, scale, momentum,
+                                         # 1 - momentum, eps
+        _I, _P,                          # max_parts, stream
+    ],
+    "gslidar_bn_act_bwd": [
+        _I, _P, _P, _P, _P, _P,          # device, dy, x, keep, weight, bias
+        _P, _P, _P, _P, _P,              # saved, part, dx, dweight, dbias
+        _L, _I, _L, _I, _I, _F,          # B, C, HW, relu, drop, scale
+        _I, _P,                          # max_parts, stream
     ],
     "gslidar_preprocess_bwd": [
         _I, _P,                          # device, params (host PrepParams)

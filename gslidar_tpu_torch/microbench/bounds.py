@@ -220,6 +220,26 @@ def adam_bound(elements: int, clock_hz: float) -> Bound:
                  mufu=issue_ms(elements * ADAM_MUFU, "mufu", clock_hz))
 
 
+# -------------------------------------------------------------- bn_act
+# per element (csrc/bn_act.cu), each operand once: the forward reads x
+# and the dropout's uniform and writes y and the keep byte; the backward
+# reads dy, x and the keep byte and writes dx. Without dropout there is
+# no uniform and no keep byte. (The kernel pairs move 17 and 22 bytes an
+# element with dropout: x read again forward; dy, x and the keep byte
+# read again backward.)
+BN_ACT_FWD_BYTES, BN_ACT_BWD_BYTES = 4 + 4 + 4 + 1, 4 + 4 + 1 + 4
+
+
+def bn_act_bound(elements: int, dropout: bool) -> tuple[Bound, Bound]:
+    """The least times of the forward and of the backward of train-mode
+    BatchNorm, ReLU and (where ``dropout``) dropout over ``elements``
+    float32 activations: their bytes, each operand once."""
+    fwd = BN_ACT_FWD_BYTES - (0 if dropout else 5)
+    bwd = BN_ACT_BWD_BYTES - (0 if dropout else 1)
+    return (bound(bytes=bytes_ms(elements * fwd)),
+            bound(bytes=bytes_ms(elements * bwd)))
+
+
 # ---------------------------------------------------------- op chains
 # per element and op, the instructions each pipe must issue (float32;
 # bfloat16 packs two elements per instruction where sm_90a has the packed

@@ -19,6 +19,11 @@ What keeps it equal to the flax module:
 * Upsampling is ``F.interpolate(mode="bilinear", align_corners=False)``,
   which samples as ``jax.image.resize(..., "bilinear")`` does when it
   upsamples, also at non-2x steps (16 -> 33, 257 -> 515).
+* In training on the card each BatchNorm and the ReLU and dropout after
+  it are one op (``norm_act``: ``models/bn_act.py``'s kernel pair), which
+  draws the dropout's uniforms as ``_dropout`` does; eval mode and the
+  CPU keep ``BatchNorm``, ``F.relu`` and ``_dropout``, the eager path the
+  tests hold to the JAX package.
 
 ``unet_from_flax`` carries a flax (params, batch_stats) tree across;
 ``unet_leaves`` / ``unet_from_leaves`` read and write the flat
@@ -33,10 +38,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from gslidar_tpu_torch.models.bn_act import BN_EPS, BN_MOMENTUM, BnActFn
 from gslidar_tpu_torch.utils.trace import backward_boundary, span
-
-BN_MOMENTUM = 0.01      # flax BatchNorm(momentum=0.99)
-BN_EPS = 1e-5
 
 
 class BatchNorm(nn.Module):
@@ -72,6 +75,25 @@ def _dropout(x, p, generator):
     return torch.where(keep, x / (1 - p), 0.0)
 
 
+def norm_act(bn, x, relu: bool, p: float = 0.0, generator=None):
+    """``bn(x)``, then ReLU where ``relu``, then dropout where ``p`` > 0
+    (drawn from ``generator`` as ``_dropout`` draws it). A float32 CUDA
+    tensor in training takes ``models/bn_act.py``'s ``BnActFn``, the
+    kernel pair of csrc/bn_act.cu; eval mode, the CPU and other dtypes
+    take the eager module and ops."""
+    if bn.training and x.is_cuda and x.dtype == torch.float32:
+        u = torch.rand(x.shape, generator=generator, device=x.device) \
+            if p > 0 else None
+        return BnActFn.apply(x, bn.weight, bn.bias,
+                             bn.running_mean, bn.running_var, u, relu, p)
+    x = bn(x)
+    if relu:
+        x = F.relu(x)
+    if p > 0:
+        x = _dropout(x, p, generator)
+    return x
+
+
 class DoubleConv(nn.Module):
     def __init__(self, in_ch, out_ch, mid_ch=None, dropout=0.1):
         super().__init__()
@@ -83,11 +105,9 @@ class DoubleConv(nn.Module):
         self.dropout = dropout
 
     def forward(self, x, generator=None):
+        p = self.dropout if self.training else 0.0
         for bn, conv in ((self.bn0, self.conv0), (self.bn1, self.conv1)):
-            x = F.relu(bn(x))
-            if self.training and self.dropout > 0:
-                x = _dropout(x, self.dropout, generator)
-            x = conv(x)
+            x = conv(norm_act(bn, x, True, p, generator))
         return x
 
 
@@ -124,7 +144,8 @@ class AttnBlock(nn.Module):
         B, C, H, W = x.shape
         hd = C // self.num_heads
         q, k, v = (t.reshape(B, self.num_heads, hd, H * W).transpose(2, 3)
-                   for t in self.qkv(self.bn(x)).chunk(3, dim=1))
+                   for t in self.qkv(norm_act(self.bn, x, False))
+                   .chunk(3, dim=1))
         w = torch.matmul(q, k.transpose(2, 3)) * (hd ** -0.5)
         if self.training and self.dropout > 0:
             drop = torch.rand(w.shape, generator=generator,
@@ -167,7 +188,7 @@ class UNet(nn.Module):
                 y = up(y, skips.pop(), generator)
         with span("unet.out"):
             backward_boundary([y], "bwd.unet.up")
-            y = self.conv_out(F.relu(self.bn(y)))
+            y = self.conv_out(norm_act(self.bn, y, True))
             return torch.sigmoid(y)
 
 

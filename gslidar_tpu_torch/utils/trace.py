@@ -32,7 +32,7 @@ Counters. ``count(name, n)`` adds to a plain integer, always on;
 - ``launches.<kernel>``: the port's hand-written kernels' launches
   (``composite_fwd``, ``composite_bwd``, ``preprocess_fwd``,
   ``preprocess_bwd``, ``chamfer_fwd``, ``chamfer_bwd``, ``adam``,
-  ``gather_rows``, ``op_chain``);
+  ``bn_act_fwd``, ``bn_act_bwd``, ``gather_rows``, ``op_chain``);
 - ``train_steps``: one per training step;
 - ``refine_epochs``: one per epoch of the ray-drop refinement
   (``engine/refine.py``'s ``refine_epoch``);
@@ -53,10 +53,12 @@ Counters. ``count(name, n)`` adds to a plain integer, always on;
 
 The refinement's spans: ``refine.epoch`` ⊃ ``refine.mask`` (the box
 mask drawn and copied), ``refine.forward`` (⊃ the U-Net's stages
-``unet.down``, ``unet.attn``, ``unet.up``, ``unet.out``), ``refine.loss``
-(the clipped BCE), ``refine.backward`` (``loss.backward()``; on
-autograd's thread ``bwd.unet.out``, ``bwd.unet.up``, ``bwd.unet.attn``,
-``bwd.unet.down``), ``refine.adam``.
+``unet.down``, ``unet.attn``, ``unet.up``, ``unet.out``, each ⊃ on the
+card a ``bn_act`` per BatchNorm, the launch of its forward kernel pair),
+``refine.loss`` (the clipped BCE), ``refine.backward``
+(``loss.backward()``; on autograd's thread ``bwd.unet.out``,
+``bwd.unet.up``, ``bwd.unet.attn``, ``bwd.unet.down``, each ⊃ on the card
+a ``bn_act.bwd`` per BatchNorm), ``refine.adam``.
 """
 
 from __future__ import annotations
